@@ -1,0 +1,412 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Phases (each fails the run with a non-zero exit if it goes wrong):
+
+1. card identity: ``nvidia-smi --query-gpu=name,power.limit``;
+2. build: every kernel of the path from ``src/repro_torch/csrc`` with nvcc,
+   one process per source, all started together;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's shapes and at one large probe, with CUDA-event times;
+4. slice: the paper's experiments exp1 to exp4 through ``run_sweep`` with
+   ``backend="cuda"``; the four claims must hold and every squant-uplink
+   variant must have launched both kernels once per round;
+5. grid: the Fig. 4 clustered problem at its published size over 5 variants
+   x 8 step sizes x 16 seeds = 640 cells;
+6. profile: the device-busy share from ``torch.profiler`` over 20 rounds of
+   one variant's 128 grid cells (after the launch counts are read).
+
+It prints one ``{"kernels": [...]}`` line, then the card's name and power
+limit, then, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
+outside a checkout of the repository, it exits non-zero and prints no result.
+It imports nothing of JAX or of the JAX package.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+
+# main-path shapes: the fig4-sized grid lays B = 128 cells of N = 20 workers
+# on the rows of the fused uplink, and M = 128 cells on the ring sum
+B, N = 128, 20
+FUSED_CASES = [(B * N, 2), (B * N, 20), (B * N, 40), (20, 2**20)]
+RING_CASES = [(N, B, 40), (N, 1, 2**20)]
+MAIN_FUSED, MAIN_RING = (B * N, 40), (N, B, 40)
+# the grid's 8 step sizes (multiples of the reference's 0.5/L) x 16 seeds
+GRID_MULTS = [2.0 ** (-0.5 * i) for i in range(8)]
+GRID_SEEDS = list(range(16))
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+def card_identity():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    line = out.stdout.strip().splitlines()[0]
+    log(f"card: {line}")
+    return line
+
+
+def build_phase():
+    from repro_torch.kernels import _build
+    names = sorted(_build.SIGNATURES)
+    t0 = time.perf_counter()
+    _build.build(names)
+    secs = time.perf_counter() - t0
+    log(f"build: {names} in {secs:.2f} s")
+    for name in names:
+        for line in _build.ptxas_report(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+    return secs
+
+
+def call_ms(fn, runs=25, per_run=10):
+    """Median over ``runs`` CUDA-event timings of ``per_run`` calls, in ms
+    per call, after a warm-up.  Host-inclusive: when the host issues work
+    slower than the card runs it, this is the host's rate."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_run):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_run)
+    return statistics.median(times)
+
+
+def device_ms(fn, calls=25):
+    """Device time per call in ms: the durations of every kernel the calls
+    ran, as the profiler's CUDA trace records them, summed and divided by
+    ``calls``.  None if the trace holds no kernel."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == cuda]
+    return sum(us) / calls / 1e3 if us else None
+
+
+def timings(kernel, plain):
+    """Device times of the kernel and of its plain version (the profiler's
+    trace; the host-inclusive event time where the trace is empty), and
+    their host-inclusive times per call."""
+    t = dict(call_ms=call_ms(kernel), plain_call_ms=call_ms(plain))
+    ms, plain_ms = device_ms(kernel), device_ms(plain)
+    t["ms_from"] = "profiler" if ms and plain_ms else "events"
+    t["ms"] = ms if ms and plain_ms else t["call_ms"]
+    t["plain_ms"] = plain_ms if ms and plain_ms else t["plain_call_ms"]
+    return t
+
+
+def bound(bytes_moved, flops):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_case(dev, rows, d, seed):
+    import torch
+    from repro_torch.kernels.fused_memory import (
+        fused_memory_update, fused_memory_update_plain)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(rows, d, generator=gen, device=dev)
+    h = torch.randn(rows, d, generator=gen, device=dev)
+    u = torch.rand(rows, d, generator=gen, device=dev)
+    alpha, s = 0.25, 1
+    before = fused_memory_update.launches
+    q, sc, hn = fused_memory_update(g, h, u, alpha, s=s, block=(1, d))
+    torch.cuda.synchronize()
+    check(fused_memory_update.launches == before + 1,
+          "fused_memory_update did not count its launch")
+    qp, scp, hnp = fused_memory_update_plain(g, h, u, alpha, s=s,
+                                             block=(1, d))
+    diff = (q.to(torch.int32) - qp.to(torch.int32)).abs()
+    mismatch = float((diff != 0).float().mean())
+    check(mismatch < 1e-4 and int(diff.max()) <= 1,
+          f"fused [{rows},{d}]: level mismatch {mismatch} max {diff.max()}")
+    check(torch.allclose(sc, scp, rtol=1e-6, atol=0),
+          f"fused [{rows},{d}]: scales differ by "
+          f"{float((sc - scp).abs().max())}")
+    agree = diff == 0
+    err_h = float((hn - hnp).abs()[agree].max())
+    check(torch.allclose(hn[agree], hnp[agree], rtol=1e-5, atol=1e-6),
+          f"fused [{rows},{d}]: h_new differs by {err_h}")
+    err = max(float((sc - scp).abs().max()), err_h)
+    n_el = rows * d
+    times = timings(
+        lambda: fused_memory_update(g, h, u, alpha, s=s, block=(1, d)),
+        lambda: fused_memory_update_plain(g, h, u, alpha, s=s, block=(1, d)))
+    # reads g, h, u (12 B), writes q (1 B) and h_new (4 B) per element and
+    # one 4 B scale per row; ~15 float ops per element (norm 3, levels and
+    # memory update 12)
+    b_ms, b_by = bound(17 * n_el + 4 * rows, 15 * n_el)
+    return dict(shape=[rows, d], max_abs_err=err, level_mismatch=mismatch,
+                bound_ms=b_ms, bound_by=b_by, **times)
+
+
+def ring_case(dev, n, m, c, seed):
+    import torch
+    from repro_torch.kernels.ring_sum import ring_sum, ring_sum_plain
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-2, 3, (n, m, c), generator=gen, device=dev,
+                      dtype=torch.int8)
+    scales = torch.rand(n, m, 1, generator=gen, device=dev)
+    before = ring_sum.launches
+    out = ring_sum(q, scales)
+    torch.cuda.synchronize()
+    check(ring_sum.launches == before + 1, "ring_sum did not count its launch")
+    ref = ring_sum_plain(q, scales)
+    err = float((out - ref).abs().max())
+    check(torch.allclose(out, ref, rtol=1e-6, atol=0),
+          f"ring_sum [{n},{m},{c}]: differs by {err}")
+    times = timings(lambda: ring_sum(q, scales),
+                    lambda: ring_sum_plain(q, scales))
+    # reads N*M*C int8 levels and N*M scales, writes M*C floats; a multiply
+    # and an add per level
+    b_ms, b_by = bound(n * m * c + 4 * n * m + 4 * m * c, 2 * n * m * c)
+    return dict(shape=[n, m, c], max_abs_err=err, bound_ms=b_ms,
+                bound_by=b_by, **times)
+
+
+def _us(ms):
+    return "not measured" if ms is None else f"{ms * 1e3:.3f} us"
+
+
+def kernel_phase(dev):
+    fused = [fused_case(dev, r, d, i) for i, (r, d) in enumerate(FUSED_CASES)]
+    ring = [ring_case(dev, n, m, c, 10 + i)
+            for i, (n, m, c) in enumerate(RING_CASES)]
+    for name, cases in (("fused_memory_update", fused), ("ring_sum", ring)):
+        for cs in cases:
+            log(f"kernel {name} {cs['shape']}: device {_us(cs['ms'])} "
+                f"(plain {_us(cs['plain_ms'])}), per call "
+                f"{_us(cs['call_ms'])} (plain {_us(cs['plain_call_ms'])}), "
+                f"bound {_us(cs['bound_ms'])} by {cs['bound_by']}, "
+                f"max_abs_err {cs['max_abs_err']:.3g}")
+    return fused, ring
+
+
+def expected_launches(cfgs, iters):
+    """Rounds that go through the fused kernels: one launch of each kernel
+    per round of every variant whose uplink codec rides them."""
+    return sum(iters for c in cfgs
+               if c.codecs()[0].fused_uplink == "squant_rows")
+
+
+def slice_phase(dev):
+    from repro_torch import experiments as ex
+    from repro_torch.core import artemis as art
+    from repro_torch.kernels.fused_memory import fused_memory_update
+    from repro_torch.kernels.ring_sum import ring_sum
+    v = art.variant_config
+    runs = [
+        ("exp1", ex.exp1_saturation,
+         [v(x, 20, 20) for x in ("sgd", "qsgd", "diana", "biqsgd",
+                                 "artemis")], 3000),
+        # exp2 runs its 4 variants over a 4-gamma grid: 4 cells each
+        ("exp2", ex.exp2_linear,
+         [v(x, 20, 20) for x in ("sgd", "qsgd", "biqsgd", "artemis")], 600),
+        ("exp3", ex.exp3_memory,
+         [v(x, 2, 20) for x in ("biqsgd", "artemis")], 800),
+        ("exp4", ex.exp4_pp,
+         [v("artemis", 2, 20, p=0.5, pp_mode=m) for m in ("pp1", "pp2")],
+         800),
+    ]
+    out = {}
+    for name, fn, cfgs, iters in runs:
+        f0, r0 = fused_memory_update.launches, ring_sum.launches
+        t0 = time.perf_counter()
+        res = fn(device=dev)
+        secs = time.perf_counter() - t0
+        want = expected_launches(cfgs, iters)
+        got = (fused_memory_update.launches - f0, ring_sum.launches - r0)
+        check(want > 0 and got == (want, want),
+              f"{name}: kernel launches {got}, expected {want} each")
+        res["seconds"] = secs
+        res["launches"] = got[0]
+        out[name] = res
+        log(f"slice {name}: {json.dumps(res, default=float)}")
+
+    sat = out["exp1"]["saturation"]
+    check(sat["sgd"] < min(sat["qsgd"], sat["diana"])
+          and max(sat["qsgd"], sat["diana"])
+          < min(sat["biqsgd"], sat["artemis"]),
+          f"exp1: saturation ordering sgd < one-way < two-way fails: {sat}")
+    loss = out["exp2"]["loss"]
+    for x in ("sgd", "qsgd", "biqsgd"):
+        check(loss[x] < 1e-10, f"exp2: {x} loss {loss[x]} not below 1e-10")
+    # artemis's gamma_max is ~10x below biqsgd's: in 600 rounds it shows a
+    # steady linear decrease rather than reaching machine precision
+    first = out["exp2"]["first_loss"]["artemis"]
+    check(loss["artemis"] < first / 10,
+          f"exp2: artemis loss {loss['artemis']} vs {first} at round 100")
+    exc = out["exp3"]["excess"]
+    check(exc["artemis"] < exc["biqsgd"],
+          f"exp3: artemis excess not below biqsgd's: {exc}")
+    exc = out["exp4"]["excess"]
+    check(exc["pp2"] < exc["pp1"], f"exp4: pp2 excess not below pp1's: {exc}")
+    log("slice: the four claims hold")
+    return out
+
+
+def grid_phase(dev):
+    from repro_torch import experiments as ex
+    from repro_torch.core import artemis as art
+    from repro_torch.kernels.fused_memory import fused_memory_update
+    from repro_torch.kernels.ring_sum import ring_sum
+    cfgs = [art.variant_config(x, 40, 20)
+            for x in ("sgd", "qsgd", "diana", "biqsgd", "artemis")]
+    f0, r0 = fused_memory_update.launches, ring_sum.launches
+    t0 = time.perf_counter()
+    res = ex.fig4_bits(device=dev, gamma_mults=GRID_MULTS, seeds=GRID_SEEDS)
+    secs = time.perf_counter() - t0
+    check(res["cells"] == 640, f"grid: {res['cells']} cells, expected 640")
+    check(res["finite"], "grid: non-finite losses")
+    want = expected_launches(cfgs, 600)
+    got = (fused_memory_update.launches - f0, ring_sum.launches - r0)
+    check(got == (want, want),
+          f"grid: kernel launches {got}, expected {want} each")
+    res["seconds"] = secs
+    log(f"grid: {json.dumps(res, default=float)}")
+    return res
+
+
+def profile_phase(dev):
+    """Device-busy share over 20 rounds of one variant's 128 grid cells."""
+    import torch
+    from repro_torch.core import artemis as art
+    from repro_torch.core import federated as fed
+    from repro_torch.core import sweep as sw
+    prob = fed.make_clustered_problem(5, n_workers=20, n_per=300, d=40,
+                                      device=dev)
+    cfg = art.variant_config("artemis", 40, 20)
+    gammas = [0.5 / prob.smoothness() * m for m in GRID_MULTS]
+    kw = dict(batch=16, eval_every=5, backend="cuda", device=dev)
+    sw.run_sweep(prob, [cfg], gammas, GRID_SEEDS, 10, **kw)   # warm-up
+    torch.cuda.synchronize()
+    # CUDA activity only: tracing the host's ops would slow the host, which
+    # is what issues the rounds
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sw.run_sweep(prob, [cfg], gammas, GRID_SEEDS, 20, **kw)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_events = [e for e in prof.events() if e.device_type == cuda]
+    dev_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    busy = dev_us / wall_us if dev_us > 0 else None
+    log(f"grid profile: 20 rounds x 128 cells, wall {wall_us:.0f} us, "
+        f"device busy {dev_us:.0f} us, share "
+        f"{'not measured' if busy is None else f'{busy:.4f}'}, "
+        f"{len(dev_events) / 20:.1f} device ops per round")
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    for e in kern[:10]:
+        log(f"  {e.key[:70]:70s} {e.self_device_time_total:10.1f} us "
+            f"x{e.count}")
+    return {"busy_share": busy, "device_ops_per_round": len(dev_events) / 20,
+            "us_per_round_cell": wall_us / (20 * 128)}
+
+
+def kernel_line(fused, ring, launches):
+    def entry(name, source, replaces, cases, main_shape, n_launch):
+        main = next(c for c in cases if c["shape"] == list(main_shape))
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n_launch,
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "ms_from": main["ms_from"], "call_ms": main["call_ms"],
+                "plain_call_ms": main["plain_call_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                # no single PyTorch call computes either fused function
+                "library_ms": None, "shape": main["shape"], "check": "pass",
+                "cases": cases}
+    return {"kernels": [
+        entry("fused_memory_update", "src/repro_torch/csrc/fused_memory.cu",
+              "src/repro/kernels/fused_memory.py:46", fused, MAIN_FUSED,
+              launches[0]),
+        entry("ring_sum", "src/repro_torch/csrc/ring_sum.cu",
+              "src/repro/kernels/ring_sum.py:28", ring, MAIN_RING,
+              launches[1])]}
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print("chip_smoke: run it from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.fused_memory import fused_memory_update
+    from repro_torch.kernels.ring_sum import ring_sum
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    card = card_identity()
+    build_phase()
+    fused, ring = kernel_phase(dev)
+    reset_launches()                    # the main path's run starts here
+    slice_res = slice_phase(dev)
+    grid_res = grid_phase(dev)
+    launches = (fused_memory_update.launches, ring_sum.launches)
+    profile_phase(dev)
+    check(min(launches) > 0, f"main path launched a kernel 0 times: "
+                             f"{launches}")
+    for name in ("exp1", "exp2", "exp3", "exp4"):
+        log(f"us per round per cell, {name}: "
+            f"{slice_res[name]['us_per_round_cell']:.2f}")
+    log(f"us per round per cell, grid (640 cells): "
+        f"{grid_res['us_per_round_cell']:.3f}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(kernel_line(fused, ring, launches)))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

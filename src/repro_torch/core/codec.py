@@ -1,0 +1,264 @@
+"""Two-sided wire codecs (port of ``repro/core/codec.py``).
+
+A ``Codec`` pairs ``encode(x, u) -> WirePayload`` with ``decode(payload) ->
+x_hat``.  The port carries the three codecs the paper's variants use:
+``identity``, ``squant`` (global-norm s-quantization, paper Definition 1) and
+``row_squant`` (the fused kernels' wire format).
+
+Batching: the LAST axis of ``x`` is one message; leading axes are independent
+messages.  This is what ``jax.vmap`` over the JAX codec gives, written out.
+
+Randomness: the uniforms enter as a tensor ``u`` of ``x``'s shape, or are
+drawn from a passed ``torch.Generator``.  Given the same ``u`` the levels
+agree with the JAX codec up to the order of the norm's reduction.
+
+Both scale conventions of the reference are kept: ``squant`` ships the
+undivided norm and decodes ``(q * norm) / s``; ``row_squant`` ships
+``norm / s`` (0 for a non-finite norm) and decodes ``q * scale``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+FP_BITS = 32  # uncompressed scalar width used by the paper's bit accounting
+
+DEFERRED = ("tile_squant", "sparsify", "topk")
+
+
+@dataclasses.dataclass(frozen=True)
+class PayloadMeta:
+    """Which codec produced a payload, the shape and dtype to restore on
+    decode, and the codec's static parameters."""
+    codec: str
+    shape: Tuple[int, ...]
+    dtype: str
+    params: Tuple[Tuple[str, Any], ...] = ()
+
+
+@dataclasses.dataclass
+class WirePayload:
+    """A named bundle of wire tensors plus static metadata.  ``leaves()``
+    lists the tensors in sorted-key order, the order the reference's pytree
+    flattening gives (its fault streams key off it)."""
+    data: Dict[str, torch.Tensor]
+    meta: PayloadMeta
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.data[name]
+
+    def replace(self, **updates) -> "WirePayload":
+        return WirePayload({**self.data, **updates}, self.meta)
+
+    def keys(self) -> Tuple[str, ...]:
+        return tuple(sorted(self.data))
+
+    def leaves(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(self.data[k] for k in self.keys())
+
+
+@dataclasses.dataclass(frozen=True)
+class Codec:
+    """A two-sided compression operator with known variance factor omega.
+
+    ``encode(x, u=None, generator=None)``; ``bits(n)`` is the paper's
+    Elias-coded size of one n-element message; ``wire_bytes(shape)`` the
+    physical payload by dtype; ``validate(payload)`` 1.0 per valid message.
+    """
+    name: str
+    omega: float
+    encode: Callable
+    decode: Callable
+    bits: Callable
+    wire_bytes: Callable
+    validate: Callable
+    unbiased: bool = True
+    fused_uplink: Optional[str] = None  # kernel family of the fused uplink
+    fused_acc: bool = False
+
+    def __call__(self, x: torch.Tensor, u: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Round-trip compress: decode(encode(x, u))."""
+        return self.decode(self.encode(x, u, generator))
+
+
+def _nelems(shape) -> int:
+    return math.prod(int(d) for d in shape)
+
+
+def _uniforms(x: torch.Tensor, u: Optional[torch.Tensor],
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    if u is not None:
+        if tuple(u.shape) != tuple(x.shape):
+            raise ValueError(f"uniforms of shape {tuple(u.shape)} for a "
+                             f"message of shape {tuple(x.shape)}")
+        return u.to(torch.float32)
+    if generator is None:
+        raise ValueError("a stochastic codec needs uniforms u or a generator")
+    return torch.rand(x.shape, generator=generator, device=x.device)
+
+
+def _norm(x: torch.Tensor) -> torch.Tensor:
+    """L2 norm of each message, as the reference writes it."""
+    return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+
+
+def _levels_ok(q: torch.Tensor, s: int) -> torch.Tensor:
+    return (q.to(torch.int32).abs() <= s + 1).all(-1)
+
+
+def _finite_nonneg(x: torch.Tensor) -> torch.Tensor:
+    return (torch.isfinite(x) & (x >= 0)).all(-1)
+
+
+# ---------------------------------------------------------------------------
+# identity (omega = 0)
+# ---------------------------------------------------------------------------
+
+def _identity_codec(d: int, **_) -> Codec:
+    def encode(x, u=None, generator=None):
+        meta = PayloadMeta("identity", tuple(x.shape), str(x.dtype))
+        return WirePayload({"values": x}, meta)
+
+    def decode(p):
+        return p["values"]
+
+    def validate(p):
+        return torch.isfinite(p["values"]).all(-1).to(torch.float32)
+
+    return Codec(
+        name="identity", omega=0.0, encode=encode, decode=decode,
+        bits=lambda n: FP_BITS * n,
+        wire_bytes=lambda shape: {"f32": 4 * _nelems(shape)},
+        validate=validate)
+
+
+# ---------------------------------------------------------------------------
+# s-quantization (paper Definition 1 / QSGD): one norm per message
+# ---------------------------------------------------------------------------
+
+def squant_omega(d: int, s: int) -> float:
+    """omega_C = min(d/s^2, sqrt(d)/s)  (Alistarh et al., App. A.1)."""
+    return min(d / s**2, math.sqrt(d) / s)
+
+
+def squant_bits(n: int, s: int) -> float:
+    """Elias-coded message size upper bound (Prop. S1)."""
+    t = s * (s + math.sqrt(n))
+    return (3.0 + 1.5 * math.log(2.0 * (s**2 + n) / t)) * t + FP_BITS
+
+
+def _check_levels(name: str, s) -> int:
+    s = int(s)
+    if not 1 <= s <= 126:
+        raise ValueError(f"{name} levels s={s} must fit int8: 1 <= s <= 126")
+    return s
+
+
+def _squant_codec(d: int, s: int = 1, **_) -> Codec:
+    s = _check_levels("squant", s)
+
+    def encode(x, u=None, generator=None):
+        u = _uniforms(x, u, generator)
+        norm = _norm(x)
+        r = torch.where(norm > 0, x.abs() / norm * s, torch.zeros_like(x))
+        low = torch.floor(r)
+        psi = low + (u < (r - low)).to(x.dtype)
+        q = (torch.sign(x) * psi).to(torch.int8)
+        meta = PayloadMeta("squant", tuple(x.shape), str(x.dtype),
+                           (("s", s),))
+        # the scale is the UNdivided norm: decode does (q * norm) / s
+        return WirePayload({"levels": q, "scales": norm}, meta)
+
+    def decode(p):
+        return p["levels"].to(p["scales"].dtype) * p["scales"] / s
+
+    def validate(p):
+        return (_levels_ok(p["levels"], s)
+                & _finite_nonneg(p["scales"])).to(torch.float32)
+
+    return Codec(
+        name=f"squant(s={s})", omega=squant_omega(d, s),
+        encode=encode, decode=decode,
+        bits=lambda n, s=s: squant_bits(n, s),
+        wire_bytes=lambda shape: {"s8": _nelems(shape),
+                                  "f32": 4 * _nelems(shape[:-1])},
+        validate=validate, fused_uplink="squant_rows")
+
+
+# ---------------------------------------------------------------------------
+# row s-quantization: the fused kernels' wire format
+# ---------------------------------------------------------------------------
+
+def row_squant_encode(x: torch.Tensor, u: torch.Tensor, s: int):
+    """Per-row (last axis) stochastic s-quantization -> (levels int8,
+    scales f32 = norm/s, keepdims).  A non-finite row ships a 0 scale so that
+    its decode is exactly 0 (the clamp of ``kernels/fused_memory.py``)."""
+    xf = x.to(torch.float32)
+    norm = _norm(xf)
+    scale = torch.where(torch.isfinite(norm), norm / s,
+                        torch.zeros_like(norm))
+    safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+    r = xf.abs() / safe * s
+    low = torch.floor(r)
+    psi = low + (u.to(torch.float32) < (r - low)).to(torch.float32)
+    q = (torch.sign(xf) * psi).to(torch.int8)
+    return q, scale
+
+
+def row_squant_decode(q: torch.Tensor, scale: torch.Tensor,
+                      dtype=torch.float32) -> torch.Tensor:
+    return (q.to(torch.float32) * scale).to(dtype)
+
+
+def _row_squant_codec(d: int, s: int = 1, **_) -> Codec:
+    s = _check_levels("row_squant", s)
+
+    def encode(x, u=None, generator=None):
+        q, scale = row_squant_encode(x, _uniforms(x, u, generator), s)
+        meta = PayloadMeta("row_squant", tuple(x.shape), str(x.dtype),
+                           (("s", s),))
+        return WirePayload({"levels": q, "scales": scale}, meta)
+
+    def decode(p):
+        return row_squant_decode(p["levels"], p["scales"],
+                                 getattr(torch, p.meta.dtype.removeprefix(
+                                     "torch.")))
+
+    def validate(p):
+        return (_levels_ok(p["levels"], s)
+                & _finite_nonneg(p["scales"])).to(torch.float32)
+
+    def wire_bytes(shape):
+        return {"s8": _nelems(shape), "f32": 4 * _nelems(shape[:-1])}
+
+    return Codec(
+        name=f"row_squant(s={s})", omega=squant_omega(max(d, 1), s),
+        encode=encode, decode=decode,
+        bits=lambda n, s=s, d=max(d, 1): math.ceil(n / d)
+        * squant_bits(min(n, d), s),
+        wire_bytes=wire_bytes, validate=validate,
+        fused_uplink="squant_rows", fused_acc=True)
+
+
+_REGISTRY: Dict[str, Callable[..., Codec]] = {
+    "identity": _identity_codec,
+    "none": _identity_codec,
+    "squant": _squant_codec,
+    "row_squant": _row_squant_codec,
+}
+
+
+def make_codec(name: str, d: int, **kwargs) -> Codec:
+    """Build a registered codec for messages of dimension ``d`` (``d`` fixes
+    omega).  Unknown kwargs are ignored, as in the reference."""
+    if name in DEFERRED:
+        raise NotImplementedError(
+            f"codec {name!r} is not ported yet; see ROADMAP.md")
+    if name not in _REGISTRY:
+        raise ValueError(
+            f"unknown codec {name!r}; choose from {sorted(_REGISTRY)}")
+    return _REGISTRY[name](d, **kwargs)

@@ -1,0 +1,131 @@
+"""The paper's headline experiments on the port (``examples/federated_artemis.py``
+exp1 to exp4 and ``benchmarks/paper_figs.py::fig4_bits``), at the reference's
+N, d, iterations and step sizes.  Each returns its numbers; none prints.
+
+Every function runs on ``device`` (CUDA unless the caller passes another)
+with ``backend="cuda"``, so the squant uplinks go through the fused kernels
+(their plain versions on CPU tensors).  The problems are drawn from the
+port's own generators, so their data differ from the reference's; the
+claims do not depend on them.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import default_device
+from repro_torch.core import artemis as art
+from repro_torch.core import federated as fed
+from repro_torch.core import sweep as sw
+
+N, D = 20, 20
+
+
+def _timed_sweep(prob, cfgs, gammas, seeds, iters, **kw):
+    """run_sweep plus its wall time in microseconds per round per cell (the
+    host clock around work that ends in a copy to the host)."""
+    t0 = time.perf_counter()
+    res = sw.run_sweep(prob, cfgs, gammas, seeds, iters, device=prob.device,
+                       backend="cuda", **kw)
+    dt = time.perf_counter() - t0
+    cells = len(cfgs) * len(gammas) * len(seeds)
+    return res, dt * 1e6 / (iters * cells)
+
+
+def exp1_saturation(device=None) -> Dict:
+    """Fig 3a: i.i.d. LSR with sigma_* != 0: every variant saturates, double
+    compression above single, above SGD (Thm 1)."""
+    dev = default_device(device)
+    prob, _ = fed.make_lsr_problem(0, n_workers=N, n_per=200, d=D, noise=0.4,
+                                   device=dev)
+    opt = float(prob.global_loss(prob.solve_opt()))
+    gamma = 0.8 * fed.gamma_max(prob, art.variant_config("artemis", D, N))
+    variants = ["sgd", "qsgd", "diana", "biqsgd", "artemis"]
+    cfgs = [art.variant_config(v, D, N) for v in variants]
+    res, us = _timed_sweep(prob, cfgs, [gamma], [0], 3000, batch=1,
+                           eval_every=10)
+    sat = {v: float(np.mean(res.losses[vi, 0, 0, -30:])) - opt
+           for vi, v in enumerate(variants)}
+    return {"saturation": sat, "us_per_round_cell": us}
+
+
+def exp2_linear(device=None) -> Dict:
+    """Fig S8: sigma_* == 0: linear convergence for every variant, each at
+    its own gamma_max (the diagonal of a variant x gamma grid)."""
+    dev = default_device(device)
+    prob, _ = fed.make_lsr_problem(0, n_workers=N, n_per=200, d=D, noise=0.0,
+                                   device=dev)
+    variants = ["sgd", "qsgd", "biqsgd", "artemis"]
+    cfgs = [art.variant_config(v, D, N) for v in variants]
+    gs = [fed.gamma_max(prob, c) for c in cfgs]
+    res, us = _timed_sweep(prob, cfgs, gs, [0], 600, batch=8, eval_every=100)
+    return {"loss": {v: float(res.losses[vi, vi, 0, -1])
+                     for vi, v in enumerate(variants)},
+            "first_loss": {v: float(res.losses[vi, vi, 0, 0])
+                           for vi, v in enumerate(variants)},
+            "gamma_max": dict(zip(variants, gs)), "us_per_round_cell": us}
+
+
+def exp3_memory(device=None) -> Dict:
+    """Fig 3b: non-i.i.d. logistic, full batch: with memory (artemis) the
+    excess loss falls far below the memoryless biqsgd's."""
+    dev = default_device(device)
+    prob = fed.make_logistic_problem(3, n_workers=N, n_per=200, d=2,
+                                     device=dev)
+    opt = float(prob.global_loss(prob.solve_opt()))
+    gamma = 1.0 / (2 * prob.smoothness())
+    variants = ["biqsgd", "artemis"]
+    cfgs = [art.variant_config(v, 2, N) for v in variants]
+    res, us = _timed_sweep(prob, cfgs, [gamma], [0], 800, full_batch=True,
+                           eval_every=100)
+    return {"excess": {v: float(res.losses[vi, 0, 0, -1]) - opt
+                       for vi, v in enumerate(variants)},
+            "us_per_round_cell": us}
+
+
+def exp4_pp(device=None) -> Dict:
+    """Fig 5/6: partial participation p = 0.5: PP1 saturates, PP2 does not."""
+    dev = default_device(device)
+    prob = fed.make_logistic_problem(5, n_workers=N, n_per=200, d=2,
+                                     device=dev)
+    opt = float(prob.global_loss(prob.solve_opt()))
+    gamma = 1.0 / (2 * prob.smoothness())
+    modes = ["pp1", "pp2"]
+    cfgs = [art.variant_config("artemis", 2, N, p=0.5, pp_mode=m)
+            for m in modes]
+    res, us = _timed_sweep(prob, cfgs, [gamma], [0], 800, full_batch=True,
+                           eval_every=10)
+    return {"excess": {m: float(np.mean(res.losses[mi, 0, 0, -5:])) - opt
+                       for mi, m in enumerate(modes)},
+            "us_per_round_cell": us}
+
+
+def fig4_bits(device=None, gamma_mults: Sequence[float] = (1.0,),
+              seeds: Sequence[int] = (0,)) -> Dict:
+    """Fig 4: loss against communicated bits on the clustered non-i.i.d.
+    problem (N=20, n_per=300, d=40, batch 16, 600 rounds, eval every 5).
+    ``gamma_mults`` scale the reference's step 0.5/L; the grid is the
+    5 variants x gammas x seeds.  Returns, per variant, the bits the first
+    cell (gamma 0, seed 0) spent to halve the excess loss (inf if never)."""
+    dev = default_device(device)
+    prob = fed.make_clustered_problem(5, n_workers=N, n_per=300, d=40,
+                                      device=dev)
+    opt = float(prob.global_loss(prob.solve_opt()))
+    target = 0.5 * (float(prob.global_loss(torch.zeros(40, device=dev)))
+                    - opt)
+    gamma = 0.5 / prob.smoothness()
+    variants = ["sgd", "qsgd", "diana", "biqsgd", "artemis"]
+    cfgs = [art.variant_config(v, 40, N) for v in variants]
+    res, us = _timed_sweep(prob, cfgs, [gamma * m for m in gamma_mults],
+                           list(seeds), 600, batch=16, eval_every=5)
+    out = {}
+    for vi, v in enumerate(variants):
+        exc = res.losses[vi, 0, 0] - opt
+        hit = np.flatnonzero(exc < target)
+        out[v] = float(res.bits[vi, 0, 0, hit[0]]) if hit.size else np.inf
+    return {"bits_to_half_loss": out, "us_per_round_cell": us,
+            "cells": len(cfgs) * len(gamma_mults) * len(seeds),
+            "finite": bool(np.isfinite(res.losses).all())}

@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version.  Importing this package builds nothing: each kernel is compiled at
+its first launch (``_build.py``)."""
+from repro_torch.kernels import fused_memory, ring_sum
+
+KERNELS = (fused_memory.fused_memory_update, ring_sum.ring_sum)
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for k in KERNELS:
+        k.launches = 0

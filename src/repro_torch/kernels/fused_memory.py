@@ -1,0 +1,116 @@
+"""Fused Artemis worker uplink: encode + memory update in one pass.
+
+Replaces the Pallas kernel ``repro/kernels/fused_memory.py::
+fused_memory_update`` with the hand-written CUDA kernel
+``csrc/fused_memory.cu``.  Per (bm x bn) tile of g, h, u it computes
+
+    delta  = g - h
+    scale  = ||delta|| / s            (0 when the norm is not finite)
+    q      = int8(sign(delta) * psi)  stochastic levels from the uniforms u
+    h_new  = h + alpha * (q * scale)
+
+and returns ``(q int8 [M, N], scales f32 [M/bm, N/bn], h_new [M, N])``.  The
+Artemis round calls it with ``block=(1, d)``: one worker row per tile, so the
+scale is that worker's L2 norm over s.
+
+Bound on an H100 SXM: bytes.  Per element it reads g, h, u (12 B) and writes
+q and h_new (5 B), plus one 4 B scale per tile, at 3.35 TB/s.  The kernel
+keeps delta and q in registers and makes its second pass over a tile from
+cache; see the source for its layout and what it leaves for later.
+
+``fused_memory_update`` launches the kernel for CUDA tensors (or raises) and
+takes ``fused_memory_update_plain`` only for CPU tensors.
+``fused_memory_update.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+DEFAULT_BLOCK = (256, 256)
+
+
+def _check(g, h, u, s, block) -> Tuple[int, int]:
+    if not 1 <= int(s) <= 126:
+        raise ValueError(f"levels s={s} must fit int8: 1 <= s <= 126")
+    if g.dim() != 2 or h.shape != g.shape or u.shape != g.shape:
+        raise ValueError(f"g, h, u must share one 2-D shape: "
+                         f"{tuple(g.shape)}, {tuple(h.shape)}, "
+                         f"{tuple(u.shape)}")
+    for name, t in (("g", g), ("h", h), ("u", u)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != g.device:
+            raise ValueError(f"{name} is on {t.device}, g on {g.device}")
+    bm, bn = (int(b) for b in block)
+    m, n = g.shape
+    if bm < 1 or bn < 1 or m % bm or n % bn:
+        raise ValueError(f"block {block} does not tile shape {(m, n)}")
+    return bm, bn
+
+
+def fused_memory_update_plain(g: torch.Tensor, h: torch.Tensor,
+                              u: torch.Tensor, alpha: float, *, s: int = 1,
+                              block=DEFAULT_BLOCK):
+    """The kernel's arithmetic in plain PyTorch, on any device."""
+    bm, bn = _check(g, h, u, s, block)
+    m, n = g.shape
+    gm, gn = m // bm, n // bn
+
+    def tiles(x):                            # [M, N] -> [gm, gn, bm, bn]
+        return x.reshape(gm, bm, gn, bn).transpose(1, 2)
+
+    delta = g - h
+    dt = tiles(delta)
+    norm = torch.sqrt(torch.sum(dt * dt, dim=(-2, -1), keepdim=True))
+    scale = torch.where(torch.isfinite(norm), norm / s,
+                        torch.zeros_like(norm))
+    safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+    r = dt.abs() / safe * s
+    low = torch.floor(r)
+    psi = low + (tiles(u) < (r - low)).to(torch.float32)
+    qf = torch.sign(dt) * psi
+    q = torch.where(torch.isnan(qf), torch.zeros_like(qf), qf).to(torch.int8)
+    h_new = tiles(h) + alpha * (q.to(torch.float32) * scale)
+
+    def untile(x):                           # [gm, gn, bm, bn] -> [M, N]
+        return x.transpose(1, 2).reshape(m, n)
+
+    return untile(q), scale.reshape(gm, gn), untile(h_new)
+
+
+def fused_memory_update(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
+                        alpha: float, *, s: int = 1, block=DEFAULT_BLOCK):
+    """Returns (q int8 [M, N], scales f32 [M/bm, N/bn], h_new f32 [M, N])."""
+    if g.device.type == "cpu":
+        return fused_memory_update_plain(g, h, u, alpha, s=s, block=block)
+    if g.device.type != "cuda":
+        raise ValueError(f"fused_memory_update runs on cuda or cpu, not "
+                         f"{g.device}")
+    bm, bn = _check(g, h, u, s, block)
+    for name, t in (("g", g), ("h", h), ("u", u)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    m, n = g.shape
+    if (m // bm) * (n // bn) >= 2**31:
+        raise ValueError(f"{(m // bm) * (n // bn)} tiles exceed one grid")
+    q = torch.empty((m, n), dtype=torch.int8, device=g.device)
+    scales = torch.empty((m // bm, n // bn), dtype=torch.float32,
+                         device=g.device)
+    h_new = torch.empty_like(g)
+    lib = _build.load("fused_memory")
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        code = lib.fused_memory_update(
+            g.data_ptr(), h.data_ptr(), u.data_ptr(), float(alpha), int(s),
+            m, n, bm, bn, q.data_ptr(), scales.data_ptr(), h_new.data_ptr(),
+            stream)
+    _build.check("fused_memory", code)
+    fused_memory_update.launches += 1
+    return q, scales, h_new
+
+
+fused_memory_update.launches = 0

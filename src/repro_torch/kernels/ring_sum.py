@@ -1,0 +1,71 @@
+"""Server dequant-accumulate over N compressed worker payloads.
+
+Replaces the Pallas kernel ``repro/kernels/ring_sum.py::ring_sum`` with the
+hand-written CUDA kernel ``csrc/ring_sum.cu``: for q [N, M, C] int8 and
+scales [N, M, 1] f32 it returns ``sum_i q[i] * scales[i]`` as [M, C] f32,
+summed in worker order with one write per output element.
+
+Bound on an H100 SXM: bytes.  It reads N*M*C int8 levels and N*M f32 scales
+and writes M*C f32, at 3.35 TB/s.  One thread per output element keeps the
+running sum in a register; no partial sum reaches device memory.
+
+Strides: the wrapper passes the strides of q's and scales' first two axes to
+the kernel, so the Artemis round hands it its [M cells, N workers] layout
+transposed to [N, M] as a view, without a copy.  q's last axis must be
+contiguous.
+
+``ring_sum`` launches the kernel for CUDA tensors (or raises) and takes
+``ring_sum_plain`` only for CPU tensors.  ``ring_sum.launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def _check(q: torch.Tensor, scales: torch.Tensor) -> None:
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"q must be int8 and scales float32, got {q.dtype} "
+                        f"and {scales.dtype}")
+    if q.dim() != 3 or tuple(scales.shape) != (q.shape[0], q.shape[1], 1):
+        raise ValueError(f"q [N, M, C] needs scales [N, M, 1]: "
+                         f"{tuple(q.shape)}, {tuple(scales.shape)}")
+    if scales.device != q.device:
+        raise ValueError(f"scales on {scales.device}, q on {q.device}")
+
+
+def ring_sum_plain(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """The kernel's sum in plain PyTorch: an explicit loop over workers, so
+    the summation order is the kernel's."""
+    _check(q, scales)
+    acc = torch.zeros(q.shape[1:], dtype=torch.float32, device=q.device)
+    for i in range(q.shape[0]):
+        acc = acc + q[i].to(torch.float32) * scales[i]
+    return acc
+
+
+def ring_sum(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """q: [N, M, C] int8, scales: [N, M, 1] f32 -> [M, C] f32."""
+    if q.device.type == "cpu":
+        return ring_sum_plain(q, scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"ring_sum runs on cuda or cpu, not {q.device}")
+    _check(q, scales)
+    n, m, c = q.shape
+    if c > 1 and q.stride(2) != 1:
+        raise ValueError("q's last axis must be contiguous")
+    out = torch.empty((m, c), dtype=torch.float32, device=q.device)
+    lib = _build.load("ring_sum")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.ring_sum(q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                            n, m, c, q.stride(0), q.stride(1),
+                            scales.stride(0), scales.stride(1), stream)
+    _build.check("ring_sum", code)
+    ring_sum.launches += 1
+    return out
+
+
+ring_sum.launches = 0

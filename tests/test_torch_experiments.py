@@ -1,0 +1,22 @@
+"""The port's paper experiments on the CPU, through the ``cuda`` backend's
+plain kernel versions: the claims that ``chip_smoke.py`` asserts on the
+card hold here too (exp1, 15000 rounds, runs only on the card)."""
+import pytest
+
+from repro_torch import experiments as ex
+
+
+def test_exp2_linear_convergence_without_noise():
+    res = ex.exp2_linear(device="cpu")
+    for v in ("sgd", "qsgd", "biqsgd"):
+        assert res["loss"][v] < 1e-10, (v, res["loss"])
+    # artemis's gamma_max is ~10x below biqsgd's: a steady linear decrease
+    assert res["loss"]["artemis"] < res["first_loss"]["artemis"] / 10
+
+
+@pytest.mark.parametrize("exp,low,high", [
+    (ex.exp3_memory, "artemis", "biqsgd"),
+    (ex.exp4_pp, "pp2", "pp1")])
+def test_memory_and_pp2_remove_the_saturation(exp, low, high):
+    exc = exp(device="cpu")["excess"]
+    assert exc[low] < exc[high], exc

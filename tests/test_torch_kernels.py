@@ -1,0 +1,131 @@
+"""The port's kernels against the JAX package's Pallas kernels.
+
+On the CPU the port's wrappers take their plain PyTorch versions; those are
+held against the Pallas kernels run in interpret mode, on the same inputs
+made from numpy seeds.  Tolerances (the reference's own, tests/
+test_kernels.py): int8 levels may differ on fewer than 1e-4 of the entries,
+each by at most 1, because the norm is reduced in another order; scales to
+rtol 1e-6; h_new to rtol 1e-5, atol 1e-6 where the levels agree; ring_sum to
+rtol 1e-6 (see its test for the atol).  The CUDA kernels against these plain
+versions: tests/test_torch_on_card.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import fused_memory as jfm
+from repro.kernels import ring_sum as jrs
+from repro_torch.kernels import fused_memory as tfm
+from repro_torch.kernels import ring_sum as trs
+
+# (shape, block): the Artemis round's single-row tiles for d = 2, 20, 40
+# (d = 40 with a ragged NaN-free tail), and the reference's 2-D tiles
+FUSED_CASES = [((8, 2), (1, 2)), ((8, 20), (1, 20)), ((8, 40), (1, 40)),
+               ((256, 512), (256, 256))]
+
+
+def _inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal(shape).astype(np.float32)
+    h = rng.standard_normal(shape).astype(np.float32)
+    u = rng.random(shape, dtype=np.float32)
+    return g, h, u
+
+
+def assert_levels_close(q, qr):
+    q, qr = np.asarray(q, np.int32), np.asarray(qr, np.int32)
+    mismatch = q != qr
+    assert mismatch.mean() < 1e-4, mismatch.mean()
+    assert np.abs(q - qr)[mismatch].max(initial=0) <= 1
+    return ~mismatch
+
+
+def assert_fused_close(out, ref):
+    (q, sc, hn), (qr, scr, hnr) = ([np.asarray(x) for x in o]
+                                   for o in (out, ref))
+    agree = assert_levels_close(q, qr)
+    np.testing.assert_allclose(sc, scr, rtol=1e-6)
+    np.testing.assert_allclose(hn[agree], hnr[agree], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,block", FUSED_CASES)
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("alpha", [0.25, 0.5])
+def test_fused_memory_plain_matches_pallas(shape, block, s, alpha):
+    g, h, u = _inputs(shape, seed=sum(shape) + s)
+    ref = jfm.fused_memory_update(jnp.asarray(g), jnp.asarray(h),
+                                  jnp.asarray(u), alpha, s=s, block=block,
+                                  interpret=True)
+    out = tfm.fused_memory_update(torch.from_numpy(g), torch.from_numpy(h),
+                                  torch.from_numpy(u), alpha, s=s,
+                                  block=block)
+    assert out[0].dtype == torch.int8 and out[1].shape == ref[1].shape
+    assert_fused_close([x.numpy() for x in out], ref)
+
+
+@pytest.mark.parametrize("bad", ["nan", "inf"])
+def test_fused_memory_nonfinite_row(bad):
+    """A non-finite row ships a 0 scale and leaves its memory untouched."""
+    d = 20
+    g, h, u = _inputs((4, d), seed=7)
+    g[2, 5] = np.nan if bad == "nan" else np.inf
+    q, sc, hn = tfm.fused_memory_update(
+        torch.from_numpy(g), torch.from_numpy(h), torch.from_numpy(u), 0.5,
+        s=1, block=(1, d))
+    _, scr, hnr = jfm.fused_memory_update(
+        jnp.asarray(g), jnp.asarray(h), jnp.asarray(u), 0.5, s=1,
+        block=(1, d), interpret=True)
+    assert float(sc[2, 0]) == 0.0 == float(scr[2, 0])
+    assert np.array_equal(hn[2].numpy(), h[2])
+    assert int(q[2, 5]) == 0             # a non-finite entry ships level 0
+    keep = [0, 1, 3]
+    np.testing.assert_allclose(sc.numpy()[keep], np.asarray(scr)[keep],
+                               rtol=1e-6)
+    np.testing.assert_allclose(hn.numpy()[keep], np.asarray(hnr)[keep],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_fused_memory_rejects_bad_input():
+    g, h, u = (torch.from_numpy(x) for x in _inputs((4, 6), seed=1))
+    with pytest.raises(ValueError):
+        tfm.fused_memory_update(g, h, u, 0.5, s=127, block=(1, 6))
+    with pytest.raises(ValueError):
+        tfm.fused_memory_update(g, h, u, 0.5, s=1, block=(3, 6))
+    with pytest.raises(TypeError):
+        tfm.fused_memory_update(g.double(), h, u, 0.5, s=1, block=(1, 6))
+
+
+# (N, M, C, block): the round's M=1, C=d aggregate and a multi-row case
+RING_CASES = [(10, 1, 40, (1, 40)), (5, 1, 2, (1, 2)),
+              (4, 8, 256, (8, 256))]
+
+
+@pytest.mark.parametrize("n,m,c,block", RING_CASES)
+def test_ring_sum_plain_matches_pallas(n, m, c, block):
+    """Bit for bit against the reference's oracle ``ring_sum_ref`` (the same
+    multiply-then-add in worker order); against the interpreted Pallas
+    kernel, whose XLA lowering fuses each multiply-add into one FMA, to
+    rtol 1e-6 with an atol of 1e-6 for sums that cancel to near 0."""
+    rng = np.random.default_rng(n * m + c)
+    q = rng.integers(-3, 4, (n, m, c)).astype(np.int8)
+    scales = rng.random((n, m, 1), dtype=np.float32)
+    scales[0] = 0.0                      # a masked (inactive) worker
+    ref = jrs.ring_sum(jnp.asarray(q), jnp.asarray(scales), block=block,
+                       interpret=True)
+    oracle = jrs.ring_sum_ref(jnp.asarray(q), jnp.asarray(scales))
+    out = trs.ring_sum(torch.from_numpy(q), torch.from_numpy(scales))
+    assert np.array_equal(out.numpy(), np.asarray(oracle))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_ring_sum_takes_strided_worker_axis():
+    """The round hands ring_sum a [N, M] view of its [M, N] layout."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.integers(-3, 4, (6, 5, 16)).astype(np.int8))
+    sc = torch.from_numpy(rng.random((6, 5, 1), dtype=np.float32))
+    out = trs.ring_sum(q.transpose(0, 1), sc.transpose(0, 1))
+    ref = trs.ring_sum(q.transpose(0, 1).contiguous(),
+                       sc.transpose(0, 1).contiguous())
+    assert torch.equal(out, ref)
