@@ -16,7 +16,24 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
 5. grid: the Fig. 4 clustered problem at its published size over 5 variants
    x 8 step sizes x 16 seeds = 640 cells;
 6. profile: the device-busy share from ``torch.profiler`` over 20 rounds of
-   one variant's 128 grid cells (after the launch counts are read).
+   one variant's 128 grid cells (after the launch counts are read);
+7. mesh: the bucketed mesh wire (``experiments.toy_mesh_train``), ToyMLP(12,
+   64) on W = 8 simulated workers for 20 steps: the six variants on the
+   pipelined ring, artemis also on the sequential ring and on psum, with
+   p = 0.5 and with local_steps = 2.  Losses must stay finite and fall
+   (dore's, which diverges later as the reference's does, must first
+   fall), pipelined must equal sequential bit for bit and psum to 1e-5
+   over 3 steps (the reference's scenario), and ``bucket_acc`` must
+   launch exactly W times per communicating step of every compressing
+   variant on the pipelined ring;
+8. wide: ToyMLP(12, 1024) (12.6 M parameters) with the default
+   ``DistConfig`` layout [16, 3076, 256], artemis, sgd(0.01), W = 8, 10
+   steps after 2 of warm-up, under ``torch.profiler``: µs per step, the
+   device-busy share and the top device kernels; the loss must fall.
+
+The simulator's path (phases 4 and 5) and the mesh's (phases 7 and 8) are
+each driven with every launch count set to 0 just before and read just
+after.
 
 It prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -24,6 +41,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 It imports nothing of JAX or of the JAX package.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -45,6 +63,15 @@ MAIN_FUSED, MAIN_RING = (B * N, 40), (N, B, 40)
 # the grid's 8 step sizes (multiples of the reference's 0.5/L) x 16 seeds
 GRID_MULTS = [2.0 ** (-0.5 * i) for i in range(8)]
 GRID_SEEDS = list(range(16))
+
+# mesh-wire shapes: W = 8 workers; ToyMLP(12, 64) lays out as [16, 49, 64]
+# (the main path), ToyMLP(12, 1024) under the default DistConfig as
+# [16, 3076, 256] (the wide probe).  bucket_acc sees [W * B, R, C]
+W = 8
+ACC_CASES = [(W * 16, 49, 64), (W * 16, 3076, 256)]
+BSUM_CASES = [(W, 16, 49, 64), (W, 16, 3076, 256)]
+MAIN_ACC, MAIN_BSUM = ACC_CASES[0], BSUM_CASES[0]
+MESH_STEPS, WIDE_STEPS = 20, 10
 
 
 class SmokeFailure(Exception):
@@ -206,6 +233,99 @@ def ring_case(dev, n, m, c, seed):
                 bound_by=b_by, **times)
 
 
+def _payload(dev, shape, seed):
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-4, 5, shape, generator=gen, device=dev,
+                      dtype=torch.int8)
+    scales = torch.rand(shape[:-1] + (1,), generator=gen, device=dev)
+    return gen, q, scales
+
+
+def library_ms(fn):
+    """Device time of one PyTorch call computing the same function, or None
+    where that call refuses the operands."""
+    import torch
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError) as exc:
+        log(f"  library call refused: {exc}")
+        return None
+    return device_ms(fn) or call_ms(fn)
+
+
+def acc_case(dev, shape, seed):
+    import torch
+    from repro_torch.kernels.bucket_ring import bucket_acc, bucket_acc_plain
+    gen, q, scales = _payload(dev, shape, seed)
+    acc = torch.randn(shape, generator=gen, device=dev)
+    before = bucket_acc.launches
+    out = bucket_acc(acc, q, scales)
+    torch.cuda.synchronize()
+    check(bucket_acc.launches == before + 1,
+          "bucket_acc did not count its launch")
+    ref = bucket_acc_plain(acc, q, scales)
+    err = float((out - ref).abs().max())
+    check(torch.equal(out, ref), f"bucket_acc {list(shape)}: differs from "
+                                 f"its plain version by {err}")
+    times = timings(lambda: bucket_acc(acc, q, scales),
+                    lambda: bucket_acc_plain(acc, q, scales))
+    n_el, rows = q.numel(), q.numel() // shape[-1]
+    # reads acc (4 B) and q (1 B), writes out (4 B) per element, reads one
+    # 4 B scale per row; a multiply and an add per element
+    b_ms, b_by = bound(9 * n_el + 4 * rows, 2 * n_el)
+    lib = library_ms(lambda: torch.addcmul(acc, q, scales))
+    return dict(shape=list(shape), max_abs_err=err, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib, library="torch.addcmul",
+                **times)
+
+
+def bsum_case(dev, shape, seed):
+    import torch
+    from repro_torch.kernels.bucket_ring import (
+        bucket_acc, bucket_ring_sum, bucket_ring_sum_plain)
+    _, q, scales = _payload(dev, shape, seed)
+    before = bucket_ring_sum.launches
+    out = bucket_ring_sum(q, scales)
+    torch.cuda.synchronize()
+    check(bucket_ring_sum.launches == before + 1,
+          "bucket_ring_sum did not count its launch")
+    ref = bucket_ring_sum_plain(q, scales)
+    err = float((out - ref).abs().max())
+    check(torch.equal(out, ref), f"bucket_ring_sum {list(shape)}: differs "
+                                 f"from its plain version by {err}")
+    chain = torch.zeros(shape[1:], device=dev)
+    for i in range(shape[0]):
+        chain = bucket_acc(chain, q[i], scales[i])
+    check(torch.equal(out, chain), f"bucket_ring_sum {list(shape)}: differs "
+                                   f"from the bucket_acc hop chain")
+    times = timings(lambda: bucket_ring_sum(q, scales),
+                    lambda: bucket_ring_sum_plain(q, scales))
+    n, n_el = shape[0], q.numel()
+    out_el = n_el // n
+    # reads N*B*R*C int8 levels and N*B*R scales, writes B*R*C floats; a
+    # multiply and an add per level
+    b_ms, b_by = bound(n_el + 4 * (n_el // shape[-1]) + 4 * out_el,
+                       2 * n_el)
+    return dict(shape=list(shape), max_abs_err=err, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, **times)
+
+
+def mesh_kernel_phase(dev):
+    acc = [acc_case(dev, sh, 20 + i) for i, sh in enumerate(ACC_CASES)]
+    bsum = [bsum_case(dev, sh, 30 + i) for i, sh in enumerate(BSUM_CASES)]
+    for name, cases in (("bucket_acc", acc), ("bucket_ring_sum", bsum)):
+        for cs in cases:
+            log(f"kernel {name} {cs['shape']}: device {_us(cs['ms'])} "
+                f"(plain {_us(cs['plain_ms'])}, library "
+                f"{_us(cs['library_ms'])}), per call {_us(cs['call_ms'])} "
+                f"(plain {_us(cs['plain_call_ms'])}), bound "
+                f"{_us(cs['bound_ms'])} by {cs['bound_by']}, max_abs_err "
+                f"{cs['max_abs_err']:.3g}")
+    return acc, bsum
+
+
 def _us(ms):
     return "not measured" if ms is None else f"{ms * 1e3:.3f} us"
 
@@ -309,6 +429,39 @@ def grid_phase(dev):
     return res
 
 
+def profiled(fn):
+    """Run ``fn()`` under ``torch.profiler`` with CUDA activity only
+    (tracing the host's ops would slow the host, which issues the work),
+    ending in a synchronize.  Returns the host wall time and the device
+    time in µs, the device-busy share (None if the trace holds no device
+    op), the count of device ops, and the top 10 device kernels as
+    [name, µs, launches]."""
+    import torch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_events = [e for e in prof.events() if e.device_type == cuda]
+    dev_us = sum(e.time_range.elapsed_us() for e in dev_events)
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    top = [[e.key, e.self_device_time_total, e.count] for e in kern[:10]]
+    busy = dev_us / wall_us if dev_us > 0 else None
+    return wall_us, dev_us, busy, len(dev_events), top
+
+
+def log_top(top):
+    for key, us, count in top:
+        log(f"  {key[:70]:70s} {us:10.1f} us x{count}")
+
+
+def _fmt_share(busy):
+    return "not measured" if busy is None else f"{busy:.4f}"
+
+
 def profile_phase(dev):
     """Device-busy share over 20 rounds of one variant's 128 grid cells."""
     import torch
@@ -322,51 +475,152 @@ def profile_phase(dev):
     kw = dict(batch=16, eval_every=5, backend="cuda", device=dev)
     sw.run_sweep(prob, [cfg], gammas, GRID_SEEDS, 10, **kw)   # warm-up
     torch.cuda.synchronize()
-    # CUDA activity only: tracing the host's ops would slow the host, which
-    # is what issues the rounds
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sw.run_sweep(prob, [cfg], gammas, GRID_SEEDS, 20, **kw)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    cuda = torch.autograd.DeviceType.CUDA
-    dev_events = [e for e in prof.events() if e.device_type == cuda]
-    dev_us = sum(e.time_range.elapsed_us() for e in dev_events)
-    busy = dev_us / wall_us if dev_us > 0 else None
+    wall_us, dev_us, busy, n_ops, top = profiled(
+        lambda: sw.run_sweep(prob, [cfg], gammas, GRID_SEEDS, 20, **kw))
     log(f"grid profile: 20 rounds x 128 cells, wall {wall_us:.0f} us, "
-        f"device busy {dev_us:.0f} us, share "
-        f"{'not measured' if busy is None else f'{busy:.4f}'}, "
-        f"{len(dev_events) / 20:.1f} device ops per round")
-    kern = [e for e in prof.key_averages() if e.device_type == cuda]
-    kern.sort(key=lambda e: -e.self_device_time_total)
-    for e in kern[:10]:
-        log(f"  {e.key[:70]:70s} {e.self_device_time_total:10.1f} us "
-            f"x{e.count}")
-    return {"busy_share": busy, "device_ops_per_round": len(dev_events) / 20,
+        f"device busy {dev_us:.0f} us, share {_fmt_share(busy)}, "
+        f"{n_ops / 20:.1f} device ops per round")
+    log_top(top)
+    return {"busy_share": busy, "device_ops_per_round": n_ops / 20,
             "us_per_round_cell": wall_us / (20 * 128)}
 
 
-def kernel_line(fused, ring, launches):
-    def entry(name, source, replaces, cases, main_shape, n_launch):
-        main = next(c for c in cases if c["shape"] == list(main_shape))
+def mesh_phase(dev):
+    """ToyMLP(12, 64) on W = 8 simulated workers through every variant."""
+    import torch
+    from repro_torch import experiments as ex
+    from repro_torch.core import dist
+    runs = [(v, "pipelined", {}) for v in dist.VARIANTS] + [
+        ("artemis", "sequential", {}), ("artemis", "psum", {}),
+        ("artemis", "pipelined", {"p_participation": 0.5}),
+        ("artemis", "pipelined", {"local_steps": 2})]
+    out = {}
+    for variant, impl, kw in runs:
+        name = "/".join([variant, impl] + [f"{k}={v}" for k, v in kw.items()])
+        res = ex.toy_mesh_train(variant, impl, steps=MESH_STEPS, n_workers=W,
+                                device=dev, **kw)
+        first, last = res["losses"][0], res["losses"][-1]
+        check(all(math.isfinite(x) for x in res["losses"]),
+              f"mesh {name}: non-finite loss in {res['losses']}")
+        # dore's error feedback diverges at this configuration within 20
+        # steps in the reference as well (its own mesh step, 8 workers):
+        # it is held to a first descent, the others to a final loss below
+        # the first
+        fell = (min(res["losses"]) if variant == "dore" else last) < first
+        check(fell, f"mesh {name}: loss {first} -> {last} did not fall")
+        compresses = dist.DistConfig(variant=variant).up_compress
+        want_acc = (W * res["comm_steps"]
+                    if compresses and impl == "pipelined" else 0)
+        want_sum = res["comm_steps"] if compresses and impl == "psum" else 0
+        got = res["launches"]
+        check(got == {"bucket_acc": want_acc, "bucket_ring_sum": want_sum},
+              f"mesh {name}: launches {got}, expected bucket_acc "
+              f"{want_acc} and bucket_ring_sum {want_sum}")
+        out[name] = res
+        log(f"mesh {name}: loss {first:.6f} -> {last:.6f}, "
+            f"{res['us_per_step']:.1f} us per step, {res['comm_steps']} "
+            f"communicating steps, launches {got}")
+    pipe, seq, psum = (out[f"artemis/{i}"]["params"]
+                       for i in ("pipelined", "sequential", "psum"))
+    for k, p in pipe.items():
+        check(torch.equal(p, seq[k]),
+              f"mesh: pipelined differs from sequential in {k}")
+    drift = max(float((p - psum[k]).abs().max()) for k, p in pipe.items())
+    # psum adds in another order; the downlink quantizer turns the last
+    # bits into whole levels now and then, and those compound over 20
+    # steps.  The reference holds the two to 1e-5 over 3 steps
+    # (tests/helpers/bucket_scenarios.py::scenario_ring_matches_psum)
+    short = [ex.toy_mesh_train("artemis", impl, steps=3, n_workers=W,
+                               device=dev)["params"]
+             for impl in ("pipelined", "psum")]
+    err = max(float((p - short[1][k]).abs().max())
+              for k, p in short[0].items())
+    check(err <= 1e-5, f"mesh: pipelined and psum differ by {err} after "
+                       f"3 steps")
+    log(f"mesh: pipelined == sequential bit for bit after {MESH_STEPS} "
+        f"steps; pipelined vs psum max |diff| {err:.3g} after 3 steps, "
+        f"{drift:.3g} after {MESH_STEPS}")
+    return {name: {k: v for k, v in res.items() if k != "params"}
+            for name, res in out.items()}
+
+
+def wide_phase(dev):
+    """ToyMLP(12, 1024) under the default DistConfig, artemis, W = 8."""
+    import torch
+    from repro_torch.core import dist
+    from repro_torch.kernels.bucket_ring import bucket_acc
+    from repro_torch.models.toy import ToyMLP
+    from repro_torch.optim import sgd
+    model = ToyMLP(12, 1024).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    batch = model.batch(gen, n=4 * W)
+    dcfg = dist.DistConfig(variant="artemis")
+    layout = dcfg.layout(list(params.values()))
+    # sgd(0.01): at the mesh phase's 0.05, s = 1 on rows of 256 diverges
+    # within 10 steps, in the reference's own mesh step as well
+    init_state, step_fn = dist.make_train_step(model, sgd(0.01), dcfg, W,
+                                               device=dev)
+    state = init_state(params)
+    for _ in range(2):                                  # warm-up
+        state, (loss0, _) = step_fn(state, batch)
+    torch.cuda.synchronize()
+    a0 = bucket_acc.launches
+    losses = []
+
+    def run():
+        nonlocal state
+        for _ in range(WIDE_STEPS):
+            state, (loss, _) = step_fn(state, batch)
+            losses.append(loss)
+
+    wall_us, dev_us, busy, n_ops, top = profiled(run)
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < float(loss0),
+          f"wide: loss {float(loss0)} -> {losses} did not fall")
+    launched = bucket_acc.launches - a0
+    check(launched == W * WIDE_STEPS,
+          f"wide: bucket_acc launched {launched}, expected {W * WIDE_STEPS}")
+    n_params = sum(p.numel() for p in params.values())
+    log(f"wide: ToyMLP(12, 1024), {n_params} parameters, layout "
+        f"{list(layout.shape)}, {WIDE_STEPS} steps: "
+        f"{wall_us / WIDE_STEPS:.1f} us per step, device busy "
+        f"{dev_us / WIDE_STEPS:.1f} us per step, share {_fmt_share(busy)}, "
+        f"{n_ops / WIDE_STEPS:.1f} device ops per step, loss "
+        f"{float(loss0):.6f} -> {losses[-1]:.6f}")
+    log_top(top)
+    return {"us_per_step": wall_us / WIDE_STEPS, "busy_share": busy,
+            "device_us_per_step": dev_us / WIDE_STEPS, "top": top,
+            "layout": list(layout.shape), "launches": launched}
+
+
+def kernel_line(cases, launches):
+    """``cases`` and ``launches`` map each kernel's name to its kernel-phase
+    cases and to its launches on its path's run."""
+    def entry(name, source, replaces, main_shape):
+        main = next(c for c in cases[name] if c["shape"] == list(main_shape))
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n_launch,
-                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": max(c["max_abs_err"] for c in cases[name]),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "ms_from": main["ms_from"], "call_ms": main["call_ms"],
                 "plain_call_ms": main["plain_call_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-                # no single PyTorch call computes either fused function
-                "library_ms": None, "shape": main["shape"], "check": "pass",
-                "cases": cases}
+                # None where no single PyTorch call computes the function
+                "library_ms": main.get("library_ms"),
+                "shape": main["shape"], "check": "pass",
+                "cases": cases[name]}
     return {"kernels": [
         entry("fused_memory_update", "src/repro_torch/csrc/fused_memory.cu",
-              "src/repro/kernels/fused_memory.py:46", fused, MAIN_FUSED,
-              launches[0]),
+              "src/repro/kernels/fused_memory.py:46", MAIN_FUSED),
         entry("ring_sum", "src/repro_torch/csrc/ring_sum.cu",
-              "src/repro/kernels/ring_sum.py:28", ring, MAIN_RING,
-              launches[1])]}
+              "src/repro/kernels/ring_sum.py:28", MAIN_RING),
+        entry("bucket_acc", "src/repro_torch/csrc/bucket_ring.cu",
+              "src/repro/kernels/bucket_ring.py:36", MAIN_ACC),
+        # the same function as ring_sum on the view [N, B*R, C]: it
+        # launches the ring_sum kernel
+        entry("bucket_ring_sum", "src/repro_torch/csrc/ring_sum.cu",
+              "src/repro/kernels/bucket_ring.py:92", MAIN_BSUM)]}
 
 
 def main():
@@ -380,6 +634,7 @@ def main():
         return 1
     sys.path.insert(0, SRC)
     from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.bucket_ring import bucket_acc, bucket_ring_sum
     from repro_torch.kernels.fused_memory import fused_memory_update
     from repro_torch.kernels.ring_sum import ring_sum
     dev = torch.device("cuda")
@@ -387,20 +642,36 @@ def main():
     card = card_identity()
     build_phase()
     fused, ring = kernel_phase(dev)
-    reset_launches()                    # the main path's run starts here
+    acc, bsum = mesh_kernel_phase(dev)
+    reset_launches()                    # the simulator's path starts here
     slice_res = slice_phase(dev)
     grid_res = grid_phase(dev)
-    launches = (fused_memory_update.launches, ring_sum.launches)
+    launches = {"fused_memory_update": fused_memory_update.launches,
+                "ring_sum": ring_sum.launches}
     profile_phase(dev)
-    check(min(launches) > 0, f"main path launched a kernel 0 times: "
-                             f"{launches}")
+    reset_launches()                    # the mesh's path starts here
+    t_mesh = time.perf_counter()
+    mesh_res = mesh_phase(dev)
+    wide_res = wide_phase(dev)
+    launches.update(bucket_acc=bucket_acc.launches,
+                    bucket_ring_sum=bucket_ring_sum.launches)
+    mesh_secs = time.perf_counter() - t_mesh
+    check(min(launches.values()) > 0,
+          f"a path launched a kernel 0 times: {launches}")
     for name in ("exp1", "exp2", "exp3", "exp4"):
         log(f"us per round per cell, {name}: "
             f"{slice_res[name]['us_per_round_cell']:.2f}")
     log(f"us per round per cell, grid (640 cells): "
         f"{grid_res['us_per_round_cell']:.3f}")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(kernel_line(fused, ring, launches)))
+    for name, res in mesh_res.items():
+        log(f"us per step, mesh {name}: {res['us_per_step']:.1f}")
+    log(f"us per step, wide artemis: {wide_res['us_per_step']:.1f} "
+        f"(busy share {wide_res['busy_share']})")
+    log(f"mesh phases {mesh_secs:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(kernel_line(
+        {"fused_memory_update": fused, "ring_sum": ring, "bucket_acc": acc,
+         "bucket_ring_sum": bsum}, launches)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -252,6 +252,11 @@ _REGISTRY: Dict[str, Callable[..., Codec]] = {
 }
 
 
+def available() -> Tuple[str, ...]:
+    """Names of the codecs the port runs."""
+    return tuple(sorted(_REGISTRY))
+
+
 def make_codec(name: str, d: int, **kwargs) -> Codec:
     """Build a registered codec for messages of dimension ``d`` (``d`` fixes
     omega).  Unknown kwargs are ignored, as in the reference."""

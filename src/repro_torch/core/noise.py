@@ -1,5 +1,5 @@
-"""Per-round noise of the sweep: sample indices, participation and codec
-uniforms, drawn per cell seed.
+"""Per-round noise of the sweep (``TorchNoise``) and per-step noise of the
+mesh (``MeshNoise``): sample indices, participation and codec uniforms.
 
 ``round(k)`` returns a ``RoundNoise`` for round ``k`` with a leading axis of
 S seeds: ``idx [S, N, batch]`` (None when the run takes full gradients),
@@ -16,7 +16,7 @@ bitwise copy of JAX's generator.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Protocol, Sequence
+from typing import Optional, Protocol, Sequence, Tuple
 
 import torch
 
@@ -78,3 +78,42 @@ class TorchNoise:
         idx, u_act, u_up, u_dwn = (None if x is None else x[j]
                                    for x in self._draws)
         return RoundNoise(idx=idx, u_act=u_act, u_up=u_up, u_dwn=u_dwn)
+
+
+@dataclasses.dataclass
+class MeshDraws:
+    """One communicating step's draws on the simulated mesh."""
+    u_up: torch.Tensor    # [W, B, R, C] uplink codec uniforms, per worker
+    u_act: torch.Tensor   # [W] participation uniforms
+    u_dwn: torch.Tensor   # [B, R, C] downlink uniforms, shared by all workers
+
+
+class MeshNoiseSource(Protocol):
+    def step(self, k: int) -> MeshDraws:
+        ...
+
+
+class MeshNoise:
+    """The default noise of the mesh step (``core/dist.py``), replacing the
+    reference's ``dist._round_keys`` chain: step k's draws come from one
+    ``torch.Generator`` on the run's device, seeded with
+    ``seed * 2**20 + k``, so they depend on nothing but (seed, k).  The
+    downlink uniforms are one tensor for every worker: the reference's
+    zero-byte broadcast, where each worker compresses the identical
+    aggregate with the identical key."""
+
+    def __init__(self, seed: int, n_workers: int,
+                 shape: Tuple[int, int, int], device):
+        if not 0 <= int(seed) < 2**40:
+            raise ValueError(f"seed must lie in [0, 2**40): {seed}")
+        self.seed, self.n, self.shape = int(seed), n_workers, tuple(shape)
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+
+    def step(self, k: int) -> MeshDraws:
+        gen, dev = self.gen, self.device
+        gen.manual_seed(self.seed * 2**20 + int(k))
+        u_up = torch.rand((self.n,) + self.shape, generator=gen, device=dev)
+        u_act = torch.rand(self.n, generator=gen, device=dev)
+        u_dwn = torch.rand(self.shape, generator=gen, device=dev)
+        return MeshDraws(u_up=u_up, u_act=u_act, u_dwn=u_dwn)

@@ -1,6 +1,7 @@
 """The paper's headline experiments on the port (``examples/federated_artemis.py``
 exp1 to exp4 and ``benchmarks/paper_figs.py::fig4_bits``), at the reference's
-N, d, iterations and step sizes.  Each returns its numbers; none prints.
+N, d, iterations and step sizes, and the mesh wire's training run
+(``toy_mesh_train``).  Each returns its numbers; none prints.
 
 Every function runs on ``device`` (CUDA unless the caller passes another)
 with ``backend="cuda"``, so the squant uplinks go through the fused kernels
@@ -18,8 +19,12 @@ import torch
 
 from repro_torch import default_device
 from repro_torch.core import artemis as art
+from repro_torch.core import dist
 from repro_torch.core import federated as fed
 from repro_torch.core import sweep as sw
+from repro_torch.kernels.bucket_ring import bucket_acc, bucket_ring_sum
+from repro_torch.models.toy import ToyMLP
+from repro_torch.optim import sgd
 
 N, D = 20, 20
 
@@ -129,3 +134,56 @@ def fig4_bits(device=None, gamma_mults: Sequence[float] = (1.0,),
     return {"bits_to_half_loss": out, "us_per_round_cell": us,
             "cells": len(cfgs) * len(gamma_mults) * len(seeds),
             "finite": bool(np.isfinite(res.losses).all())}
+
+
+def toy_mesh_train(variant: str = "artemis", reduce_impl: str = "pipelined",
+                   n_layers: int = 12, d: int = 64, steps: int = 20,
+                   device=None, *, n_workers: int = 8,
+                   p_participation: float = 1.0,
+                   local_steps: int = 1) -> Dict:
+    """Train ToyMLP(n_layers, d) on W = ``n_workers`` simulated workers
+    through the bucketed mesh wire, as ``benchmarks/bucket_ring_bench.py::
+    bench_wire`` configures it (s=3, 4096-byte buckets, at most 16, rows of
+    64, sgd(0.05), 4 W rows per batch), from parameters and a batch drawn
+    with seed 0.  With ``local_steps`` k > 1, every k-th step communicates
+    and the others only accumulate.
+
+    Returns the loss of every step, the median µs per step (host clock
+    around each step, ending in a synchronize on CUDA), the number of
+    communicating steps, the launches of the mesh kernels over the run,
+    the layout and the final parameters."""
+    dev = default_device(device)
+    model = ToyMLP(n_layers, d).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    batch = model.batch(gen, n=4 * n_workers)
+    dcfg = dist.DistConfig(variant=variant, s=3,
+                           p_participation=p_participation,
+                           local_steps=local_steps, bucket_bytes=4096,
+                           max_buckets=16, bucket_row=64,
+                           reduce_impl=reduce_impl)
+    init_state, step_fn = dist.make_train_step(model, sgd(0.05), dcfg,
+                                               n_workers, device=dev)
+    local_fn = (dist.make_local_step(model, dcfg, n_workers)
+                if local_steps > 1 else None)
+    state = init_state(params)
+    a0, r0 = bucket_acc.launches, bucket_ring_sum.launches
+    losses, times, comm = [], [], 0
+    for i in range(steps):
+        t0 = time.perf_counter()
+        if local_fn is not None and (i + 1) % local_steps:
+            state, (loss, _) = local_fn(state, batch)
+        else:
+            state, (loss, _) = step_fn(state, batch)
+            comm += 1
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    return {"losses": torch.stack(losses).tolist(),
+            "us_per_step": float(np.median(times)) * 1e6,
+            "comm_steps": comm,
+            "launches": {"bucket_acc": bucket_acc.launches - a0,
+                         "bucket_ring_sum": bucket_ring_sum.launches - r0},
+            "layout": dcfg.layout(list(params.values())).shape,
+            "params": state.params}

@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version.  Importing this package builds nothing: each kernel is compiled at
 its first launch (``_build.py``)."""
-from repro_torch.kernels import fused_memory, ring_sum
+from repro_torch.kernels import bucket_ring, fused_memory, ring_sum
 
-KERNELS = (fused_memory.fused_memory_update, ring_sum.ring_sum)
+KERNELS = (fused_memory.fused_memory_update, ring_sum.ring_sum,
+           bucket_ring.bucket_acc, bucket_ring.bucket_ring_sum)
 
 
 def reset_launches() -> None:

@@ -37,6 +37,7 @@ SIGNATURES = {
                      (_P, _P, _P, _F, _I, _LL, _LL, _I, _I, _P, _P, _P, _P)),
     "ring_sum": ("ring_sum",
                  (_P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL, _LL, _P)),
+    "bucket_ring": ("bucket_acc", (_P, _P, _P, _P, _LL, _LL, _P)),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -46,12 +46,12 @@ def ring_sum_plain(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def ring_sum(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """q: [N, M, C] int8, scales: [N, M, 1] f32 -> [M, C] f32."""
-    if q.device.type == "cpu":
-        return ring_sum_plain(q, scales)
+def launch(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors q [N, M, C], scales [N, M, 1] and
+    return [M, C].  Counts nothing: each wrapper that launches it counts its
+    own launches."""
     if q.device.type != "cuda":
-        raise ValueError(f"ring_sum runs on cuda or cpu, not {q.device}")
+        raise ValueError(f"the ring_sum kernel runs on cuda, not {q.device}")
     _check(q, scales)
     n, m, c = q.shape
     if c > 1 and q.stride(2) != 1:
@@ -64,6 +64,14 @@ def ring_sum(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
                             n, m, c, q.stride(0), q.stride(1),
                             scales.stride(0), scales.stride(1), stream)
     _build.check("ring_sum", code)
+    return out
+
+
+def ring_sum(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """q: [N, M, C] int8, scales: [N, M, 1] f32 -> [M, C] f32."""
+    if q.device.type == "cpu":
+        return ring_sum_plain(q, scales)
+    out = launch(q, scales)
     ring_sum.launches += 1
     return out
 

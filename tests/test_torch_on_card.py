@@ -8,13 +8,16 @@ JAX nor the JAX package, so they also run where only the port is installed:
 
 Tolerances: int8 levels may differ on fewer than 1e-4 of the entries, each
 by at most 1 (the kernel reduces the norm in another order); scales to
-rtol 1e-6; h_new to rtol 1e-5, atol 1e-6 where the levels agree; ring_sum
-bit for bit (the same multiply-then-add in worker order).
+rtol 1e-6; h_new to rtol 1e-5, atol 1e-6 where the levels agree; ring_sum,
+bucket_acc and bucket_ring_sum bit for bit (the same multiply-then-add, in
+worker order), and so the pipelined mesh ring equals the sequential one.
 """
 import pytest
 import torch
 
+from repro_torch import experiments
 from repro_torch.core import artemis as tart
+from repro_torch.kernels import bucket_ring as tbr
 from repro_torch.kernels import fused_memory as tfm
 from repro_torch.kernels import ring_sum as trs
 
@@ -97,3 +100,50 @@ def test_cuda_round_matches_dense_round(cuda_device, variant):
     (om_d, st_d, _), (om_c, st_c, _) = outs
     torch.testing.assert_close(om_c, om_d, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(st_c.h, st_d.h, rtol=1e-5, atol=1e-5)
+
+
+def _payload(shape, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-4, 5, shape, generator=gen, device=dev,
+                      dtype=torch.int8)
+    sc = torch.rand(shape[:-1] + (1,), generator=gen, device=dev)
+    return q, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(128, 49, 64), (8, 16, 49, 64),
+                                   (3, 45, 1)])
+def test_bucket_acc_kernel_matches_plain(cuda_device, shape):
+    q, sc = _payload(shape, sum(shape), cuda_device)
+    acc = torch.randn(shape, device=cuda_device)
+    before = tbr.bucket_acc.launches
+    out = tbr.bucket_acc(acc, q, sc)
+    torch.cuda.synchronize()
+    assert tbr.bucket_acc.launches == before + 1
+    assert torch.equal(out, tbr.bucket_acc_plain(acc, q, sc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,b,r,c", [(8, 16, 49, 64), (5, 3, 45, 1)])
+def test_bucket_ring_sum_kernel_matches_chain(cuda_device, n, b, r, c):
+    q, sc = _payload((n, b, r, c), n + r, cuda_device)
+    before = tbr.bucket_ring_sum.launches
+    out = tbr.bucket_ring_sum(q, sc)
+    torch.cuda.synchronize()
+    assert tbr.bucket_ring_sum.launches == before + 1
+    acc = torch.zeros(b, r, c, device=cuda_device)
+    for i in range(n):
+        acc = tbr.bucket_acc(acc, q[i], sc[i])
+    assert torch.equal(out, acc)
+    assert torch.equal(out, tbr.bucket_ring_sum_plain(q, sc))
+
+
+@pytest.mark.cuda
+def test_mesh_pipelined_equals_sequential(cuda_device):
+    runs = [experiments.toy_mesh_train("artemis", impl, n_layers=2, d=32,
+                                       steps=3, n_workers=4,
+                                       device=cuda_device)
+            for impl in ("pipelined", "sequential")]
+    assert runs[0]["launches"]["bucket_acc"] == 3 * 4
+    for k, p in runs[0]["params"].items():
+        assert torch.equal(p, runs[1]["params"][k])
