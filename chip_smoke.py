@@ -29,11 +29,23 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
 8. wide: ToyMLP(12, 1024) (12.6 M parameters) with the default
    ``DistConfig`` layout [16, 3076, 256], artemis, sgd(0.01), W = 8, 10
    steps after 2 of warm-up, under ``torch.profiler``: µs per step, the
-   device-busy share and the top device kernels; the loss must fall.
+   device-busy share and the top device kernels; the loss must fall;
+9. ops kernels: the compression API's kernels (squant_encode, squant_decode
+   to f32 and bf16, dequant_apply in f32 and bf16, and fused_memory_update
+   on (256, 256) tiles) against their plain versions at [4096, 256] (one
+   ToyMLP(12, 1024) weight as the API packs it) and at a [16384, 4096]
+   probe, with device times, bounds and one-call library times;
+10. ops: the compression API (``repro_torch.kernels.ops``) on ToyMLP(12,
+   1024): ``tree_compress`` of a gradient tree (finite, shapes, signs),
+   ``tree_memory_update`` twice (h_new = h + alpha * delta_hat), then 10
+   steps after 2 of warm-up of compressed SGD (``experiments.
+   compressed_sgd_step``: encode and the fused apply per leaf, s = 1,
+   lr = 0.01) under ``torch.profiler``; the loss must fall, and every step
+   must launch squant_encode and dequant_apply once per leaf (25 each).
 
-The simulator's path (phases 4 and 5) and the mesh's (phases 7 and 8) are
-each driven with every launch count set to 0 just before and read just
-after.
+The simulator's path (phases 4 and 5), the mesh's (phases 7 and 8) and the
+compression API's (phase 10) are each driven with every launch count set to
+0 just before and read just after.
 
 It prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -72,6 +84,14 @@ ACC_CASES = [(W * 16, 49, 64), (W * 16, 3076, 256)]
 BSUM_CASES = [(W, 16, 49, 64), (W, 16, 3076, 256)]
 MAIN_ACC, MAIN_BSUM = ACC_CASES[0], BSUM_CASES[0]
 MESH_STEPS, WIDE_STEPS = 20, 10
+
+# compression-API shapes: ops._pack lays a ToyMLP(12, 1024) weight
+# (1024 x 1024) out as [4096, 256] in (256, 256) tiles (the main shape);
+# the probe holds 67.1 M elements
+OPS_BLOCK = (256, 256)
+OPS_CASES = [(4096, 256), (16384, 4096)]
+MAIN_OPS = OPS_CASES[0]
+OPS_STEPS, OPS_S, OPS_LR, OPS_ALPHA = 10, 1, 0.01, 0.5
 
 
 class SmokeFailure(Exception):
@@ -133,30 +153,50 @@ def call_ms(fn, runs=25, per_run=10):
     return statistics.median(times)
 
 
-def device_ms(fn, calls=25):
-    """Device time per call in ms: the durations of every kernel the calls
-    ran, as the profiler's CUDA trace records them, summed and divided by
-    ``calls``.  None if the trace holds no kernel."""
+def device_trace(fn, calls=25, pad=8):
+    """The device kernels that ``calls`` calls of ``fn`` ran, as the
+    profiler's CUDA trace records them: (summed duration in ms per call,
+    kernels per call, kernel names), or (None, 0, []) if the trace holds no
+    kernel.  A trace can drop a few kernels at its ends, so the calls run
+    between ``pad`` spin kernels on each side, left out of the sums."""
     import torch
     fn()
     torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            torch.cuda._sleep(1000)
         for _ in range(calls):
             fn()
+        for _ in range(pad):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == cuda]
-    return sum(us) / calls / 1e3 if us else None
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda
+              and "spin_kernel" not in e.name]
+    if not events:
+        return None, 0, []
+    ms = sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
+    return ms, len(events) / calls, sorted({e.name for e in events})
+
+
+def device_ms(fn, calls=25):
+    """Device time per call in ms (``device_trace``), or None."""
+    return device_trace(fn, calls)[0]
 
 
 def timings(kernel, plain):
     """Device times of the kernel and of its plain version (the profiler's
     trace; the host-inclusive event time where the trace is empty), and
-    their host-inclusive times per call."""
+    their host-inclusive times per call.  Each wrapper launches one kernel
+    per call: ``kernels_per_call`` other than 1 says its trace was
+    incomplete."""
     t = dict(call_ms=call_ms(kernel), plain_call_ms=call_ms(plain))
-    ms, plain_ms = device_ms(kernel), device_ms(plain)
+    ms, per_call, _ = device_trace(kernel)
+    plain_ms = device_ms(plain)
+    t["kernels_per_call"] = per_call
+    if ms and per_call != 1:
+        log(f"  the kernel's trace holds {per_call:g} kernels per call")
     t["ms_from"] = "profiler" if ms and plain_ms else "events"
     t["ms"] = ms if ms and plain_ms else t["call_ms"]
     t["plain_ms"] = plain_ms if ms and plain_ms else t["plain_call_ms"]
@@ -594,6 +634,298 @@ def wide_phase(dev):
             "layout": list(layout.shape), "launches": launched}
 
 
+def _library_one_kernel(fn):
+    """``library_ms(fn)`` where one PyTorch call runs as one device kernel,
+    else None (it is then no one-call yardstick); and the names of the
+    device kernels the calls ran."""
+    _, per_call, names = device_trace(fn)
+    if per_call != 1 or len(names) != 1:
+        log(f"  library call ran {per_call:g} kernels per call "
+            f"{names}: no one-call yardstick")
+        return None, names
+    return library_ms(fn), names
+
+
+def _tiles(shape):
+    return (shape[0] // OPS_BLOCK[0]) * (shape[1] // OPS_BLOCK[1])
+
+
+def _tile_views(shape):
+    """[M, N] -> [gm, bm, gn, bn] and the scales' broadcast [gm, 1, gn, 1]."""
+    (m, n), (bm, bn) = shape, OPS_BLOCK
+    return (m // bm, bm, n // bn, bn), (m // bm, 1, n // bn, 1)
+
+
+def _dt(dtype):
+    import torch
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def encode_case(dev, shape, xdt, udt, seed, timed=True):
+    import torch
+    from repro_torch.kernels.squant import squant_encode, squant_encode_plain
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev).to(xdt)
+    u = torch.rand(shape, generator=gen, device=dev).to(udt)
+    before = squant_encode.launches
+    q, sc = squant_encode(x, u, s=OPS_S, block=OPS_BLOCK)
+    torch.cuda.synchronize()
+    check(squant_encode.launches == before + 1,
+          "squant_encode did not count its launch")
+    qp, scp = squant_encode_plain(x, u, s=OPS_S, block=OPS_BLOCK)
+    diff = (q.to(torch.int32) - qp.to(torch.int32)).abs()
+    mismatch = float((diff != 0).float().mean())
+    name = f"squant_encode {list(shape)} x {_dt(xdt)} u {_dt(udt)}"
+    check(mismatch < 1e-4 and int(diff.max()) <= 1,
+          f"{name}: level mismatch {mismatch} max {diff.max()}")
+    check(torch.allclose(sc, scp, rtol=1e-6, atol=0),
+          f"{name}: scales differ by {float((sc - scp).abs().max())}")
+    check(torch.equal(squant_encode(x, u, s=OPS_S, block=OPS_BLOCK)[0], q),
+          f"{name}: a second launch gave other levels")
+    out = dict(shape=list(shape), dtype=f"{_dt(xdt)}/{_dt(udt)}",
+               max_abs_err=float((sc - scp).abs().max()),
+               level_mismatch=mismatch)
+    if timed:
+        n_el = x.numel()
+        # reads x and u, writes the levels, per element; one 4 B scale per
+        # tile; ~10 float ops per element (the square-sum 2, the levels 8)
+        b_ms, b_by = bound((x.element_size() + u.element_size() + 1) * n_el
+                           + 4 * _tiles(shape), 10 * n_el)
+        out.update(bound_ms=b_ms, bound_by=b_by, library_ms=None, **timings(
+            lambda: squant_encode(x, u, s=OPS_S, block=OPS_BLOCK),
+            lambda: squant_encode_plain(x, u, s=OPS_S, block=OPS_BLOCK)))
+    return out
+
+
+def _payload2d(dev, shape, seed):
+    import torch
+    from repro_torch.kernels.squant import squant_encode
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev)
+    u = torch.rand(shape, generator=gen, device=dev)
+    w = torch.randn(shape, generator=gen, device=dev)
+    q, sc = squant_encode(x, u, s=OPS_S, block=OPS_BLOCK)
+    return w, q, sc
+
+
+def decode_case(dev, shape, dtype, seed):
+    import torch
+    from repro_torch.kernels.squant import squant_decode, squant_decode_plain
+    _, q, sc = _payload2d(dev, shape, seed)
+    before = squant_decode.launches
+    out = squant_decode(q, sc, block=OPS_BLOCK, dtype=dtype)
+    torch.cuda.synchronize()
+    check(squant_decode.launches == before + 1,
+          "squant_decode did not count its launch")
+    ref = squant_decode_plain(q, sc, block=OPS_BLOCK, dtype=dtype)
+    err = float((out.float() - ref.float()).abs().max())
+    name = f"squant_decode {list(shape)} to {_dt(dtype)}"
+    check(torch.equal(out, ref), f"{name}: differs from its plain version "
+                                 f"by {err}")
+    n_el = q.numel()
+    # reads the levels, writes the values, per element; one 4 B scale per
+    # tile; one multiply per element
+    b_ms, b_by = bound((1 + out.element_size()) * n_el + 4 * _tiles(shape),
+                       n_el)
+    lib, lib_kernels = None, None
+    if dtype == torch.float32:
+        qv, sv = _tile_views(shape)
+        lib, lib_kernels = _library_one_kernel(
+            lambda: torch.mul(q.view(qv), sc.view(sv)))
+    return dict(shape=list(shape), dtype=_dt(dtype), max_abs_err=err,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library="torch.mul", library_kernels=lib_kernels, **timings(
+                    lambda: squant_decode(q, sc, block=OPS_BLOCK,
+                                          dtype=dtype),
+                    lambda: squant_decode_plain(q, sc, block=OPS_BLOCK,
+                                                dtype=dtype)))
+
+
+def apply_case(dev, shape, dtype, seed):
+    import torch
+    from repro_torch.kernels.squant import dequant_apply, dequant_apply_plain
+    w, q, sc = _payload2d(dev, shape, seed)
+    w = w.to(dtype)
+    gamma = OPS_LR
+    before = dequant_apply.launches
+    out = dequant_apply(w, q, sc, gamma, block=OPS_BLOCK)
+    torch.cuda.synchronize()
+    check(dequant_apply.launches == before + 1,
+          "dequant_apply did not count its launch")
+    ref = dequant_apply_plain(w, q, sc, gamma, block=OPS_BLOCK)
+    err = float((out.float() - ref.float()).abs().max())
+    name = f"dequant_apply {list(shape)} in {_dt(dtype)}"
+    check(torch.equal(out, ref), f"{name}: differs from its plain version "
+                                 f"by {err}")
+    n_el = q.numel()
+    # reads w and the levels, writes w', per element; one 4 B scale per
+    # tile; three float ops per element
+    b_ms, b_by = bound((2 * w.element_size() + 1) * n_el
+                       + 4 * _tiles(shape), 3 * n_el)
+    lib, lib_kernels = None, None
+    if dtype == torch.float32:
+        qv, sv = _tile_views(shape)
+        lib, lib_kernels = _library_one_kernel(
+            lambda: torch.addcmul(w.view(qv), q.view(qv), sc.view(sv),
+                                  value=-gamma))
+    return dict(shape=list(shape), dtype=_dt(dtype), max_abs_err=err,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library="torch.addcmul", library_kernels=lib_kernels,
+                **timings(
+                    lambda: dequant_apply(w, q, sc, gamma, block=OPS_BLOCK),
+                    lambda: dequant_apply_plain(w, q, sc, gamma,
+                                                block=OPS_BLOCK)))
+
+
+def fused_tile_case(dev, shape, seed):
+    """fused_memory_update on the compression API's (256, 256) tiles."""
+    import torch
+    from repro_torch.kernels.fused_memory import (
+        fused_memory_update, fused_memory_update_plain)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g, h = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+    u = torch.rand(shape, generator=gen, device=dev)
+    args = (g, h, u, OPS_ALPHA)
+    kw = dict(s=OPS_S, block=OPS_BLOCK)
+    before = fused_memory_update.launches
+    q, sc, hn = fused_memory_update(*args, **kw)
+    torch.cuda.synchronize()
+    check(fused_memory_update.launches == before + 1,
+          "fused_memory_update did not count its launch")
+    qp, scp, hnp = fused_memory_update_plain(*args, **kw)
+    diff = (q.to(torch.int32) - qp.to(torch.int32)).abs()
+    mismatch = float((diff != 0).float().mean())
+    name = f"fused_memory_update {list(shape)} in {OPS_BLOCK} tiles"
+    check(mismatch < 1e-4 and int(diff.max()) <= 1,
+          f"{name}: level mismatch {mismatch} max {diff.max()}")
+    check(torch.allclose(sc, scp, rtol=1e-6, atol=0),
+          f"{name}: scales differ by {float((sc - scp).abs().max())}")
+    agree = diff == 0
+    err_h = float((hn - hnp).abs()[agree].max())
+    check(torch.allclose(hn[agree], hnp[agree], rtol=1e-5, atol=1e-6),
+          f"{name}: h_new differs by {err_h}")
+    n_el = g.numel()
+    b_ms, b_by = bound(17 * n_el + 4 * _tiles(shape), 15 * n_el)
+    return dict(shape=list(shape), block=list(OPS_BLOCK),
+                max_abs_err=max(float((sc - scp).abs().max()), err_h),
+                level_mismatch=mismatch, bound_ms=b_ms, bound_by=b_by,
+                **timings(lambda: fused_memory_update(*args, **kw),
+                          lambda: fused_memory_update_plain(*args, **kw)))
+
+
+def ops_kernel_phase(dev):
+    import torch
+    f32, bf16 = torch.float32, torch.bfloat16
+    enc = [encode_case(dev, sh, f32, f32, 40 + i)
+           for i, sh in enumerate(OPS_CASES)]
+    enc += [encode_case(dev, MAIN_OPS, bf16, bf16, 42),
+            encode_case(dev, MAIN_OPS, f32, bf16, 43, timed=False)]
+    dec = [decode_case(dev, sh, dt, 50 + i)
+           for i, sh in enumerate(OPS_CASES) for dt in (f32, bf16)]
+    app = [apply_case(dev, sh, dt, 60 + i)
+           for i, sh in enumerate(OPS_CASES) for dt in (f32, bf16)]
+    fused = [fused_tile_case(dev, sh, 70 + i)
+             for i, sh in enumerate(OPS_CASES)]
+    for name, cases in (("squant_encode", enc), ("squant_decode", dec),
+                        ("dequant_apply", app),
+                        ("fused_memory_update (256, 256)", fused)):
+        for cs in cases:
+            if "ms" not in cs:
+                log(f"kernel {name} {cs['shape']} {cs['dtype']}: agrees "
+                    f"(level mismatch {cs['level_mismatch']:.3g})")
+                continue
+            log(f"kernel {name} {cs['shape']} {cs.get('dtype', 'f32')}: "
+                f"device {_us(cs['ms'])} (plain {_us(cs['plain_ms'])}, "
+                f"library {_us(cs.get('library_ms'))}), per call "
+                f"{_us(cs['call_ms'])} (plain {_us(cs['plain_call_ms'])}), "
+                f"bound {_us(cs['bound_ms'])} by {cs['bound_by']}, "
+                f"max_abs_err {cs['max_abs_err']:.3g}")
+    return enc, dec, app, fused
+
+
+def _leaves_ok(tree, ref, name):
+    import torch
+    for k, v in tree.items():
+        check(v.shape == ref[k].shape and v.dtype == ref[k].dtype,
+              f"ops {name}: leaf {k} is {tuple(v.shape)} {v.dtype}")
+        check(bool(torch.isfinite(v).all()),
+              f"ops {name}: leaf {k} is not finite")
+
+
+def ops_phase(dev):
+    """The compression API on ToyMLP(12, 1024): tree_compress,
+    tree_memory_update twice, then compressed SGD."""
+    import torch
+    from repro_torch.experiments import compressed_sgd_step
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.squant import dequant_apply, squant_encode
+    from repro_torch.models.toy import ToyMLP
+    model = ToyMLP(12, 1024).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    batch = model.batch(gen, n=4 * W)
+    n_leaves = len(params)
+    grads = torch.func.grad(lambda p: model.loss(p, batch)[0])(params)
+    packed = sum(ops._pack(g, OPS_BLOCK)[0].numel() for g in grads.values())
+    # (a) one gradient tree through the round trip
+    out = ops.tree_compress(grads, generator=gen, s=OPS_S)
+    _leaves_ok(out, grads, "tree_compress")
+    for k, v in out.items():
+        check(bool(((torch.sign(v) == 0)
+                    | (torch.sign(v) == torch.sign(grads[k]))).all()),
+              f"ops tree_compress: leaf {k} flips a sign")
+    # (b) the fused memory update from h = 0, then from the new h
+    h = {k: torch.zeros_like(v) for k, v in grads.items()}
+    for rnd in range(2):
+        dh, h_new = ops.tree_memory_update(grads, h, OPS_ALPHA,
+                                           generator=gen, s=OPS_S)
+        _leaves_ok(h_new, grads, "tree_memory_update")
+        for k in grads:
+            check(torch.allclose(h_new[k], h[k] + OPS_ALPHA * dh[k],
+                                 rtol=1e-5, atol=1e-6),
+                  f"ops tree_memory_update {rnd}: h_new != h + alpha * "
+                  f"delta_hat in {k}")
+        h = h_new
+    # (c) compressed SGD through encode and the fused apply
+    wire = sum(ops.encode(g, generator=gen, s=OPS_S)[0].wire_bytes
+               for g in grads.values())
+
+    def step():
+        nonlocal params
+        params, loss = compressed_sgd_step(model, params, batch, OPS_LR,
+                                           s=OPS_S, generator=gen)
+        return loss
+
+    loss0 = step()
+    step()                                              # warm-up
+    torch.cuda.synchronize()
+    e0, a0 = squant_encode.launches, dequant_apply.launches
+    losses = []
+    wall_us, dev_us, busy, n_ops, top = profiled(
+        lambda: losses.extend(step() for _ in range(OPS_STEPS)))
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses)
+          and losses[-1] < float(loss0),
+          f"ops: loss {float(loss0)} -> {losses} did not fall")
+    per_step = ((squant_encode.launches - e0) / OPS_STEPS,
+                (dequant_apply.launches - a0) / OPS_STEPS)
+    check(per_step == (n_leaves, n_leaves),
+          f"ops: launches per step {per_step}, expected {n_leaves} of "
+          f"squant_encode and of dequant_apply")
+    log(f"ops: ToyMLP(12, 1024), {n_leaves} leaves packed into {packed} "
+        f"elements, {wire} wire bytes per gradient; compressed sgd s = "
+        f"{OPS_S}, lr = {OPS_LR}, {OPS_STEPS} steps: "
+        f"{wall_us / OPS_STEPS:.1f} us per step, device busy "
+        f"{dev_us / OPS_STEPS:.1f} us per step, share {_fmt_share(busy)}, "
+        f"{n_ops / OPS_STEPS:.1f} device ops per step, loss "
+        f"{float(loss0):.6f} -> {losses[-1]:.6f}, launches per step "
+        f"{per_step}")
+    log_top(top)
+    return {"us_per_step": wall_us / OPS_STEPS, "busy_share": busy,
+            "device_us_per_step": dev_us / OPS_STEPS, "top": top,
+            "packed": packed, "wire_bytes": wire, "losses": losses}
+
+
 def kernel_line(cases, launches):
     """``cases`` and ``launches`` map each kernel's name to its kernel-phase
     cases and to its launches on its path's run."""
@@ -620,7 +952,13 @@ def kernel_line(cases, launches):
         # the same function as ring_sum on the view [N, B*R, C]: it
         # launches the ring_sum kernel
         entry("bucket_ring_sum", "src/repro_torch/csrc/ring_sum.cu",
-              "src/repro/kernels/bucket_ring.py:92", MAIN_BSUM)]}
+              "src/repro/kernels/bucket_ring.py:92", MAIN_BSUM),
+        entry("squant_encode", "src/repro_torch/csrc/squant.cu",
+              "src/repro/kernels/squant.py:60", MAIN_OPS),
+        entry("squant_decode", "src/repro_torch/csrc/squant.cu",
+              "src/repro/kernels/squant.py:86", MAIN_OPS),
+        entry("dequant_apply", "src/repro_torch/csrc/squant.cu",
+              "src/repro/kernels/squant.py:104", MAIN_OPS)]}
 
 
 def main():
@@ -637,6 +975,8 @@ def main():
     from repro_torch.kernels.bucket_ring import bucket_acc, bucket_ring_sum
     from repro_torch.kernels.fused_memory import fused_memory_update
     from repro_torch.kernels.ring_sum import ring_sum
+    from repro_torch.kernels.squant import (
+        dequant_apply, squant_decode, squant_encode)
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     card = card_identity()
@@ -656,6 +996,18 @@ def main():
     launches.update(bucket_acc=bucket_acc.launches,
                     bucket_ring_sum=bucket_ring_sum.launches)
     mesh_secs = time.perf_counter() - t_mesh
+    t_ops = time.perf_counter()
+    enc, dec, app, fused_tiles = ops_kernel_phase(dev)
+    reset_launches()                    # the compression API's path
+    ops_res = ops_phase(dev)
+    launches.update(squant_encode=squant_encode.launches,
+                    squant_decode=squant_decode.launches,
+                    dequant_apply=dequant_apply.launches)
+    log(f"ops path launches: {launches['squant_encode']} squant_encode, "
+        f"{launches['squant_decode']} squant_decode, "
+        f"{launches['dequant_apply']} dequant_apply, "
+        f"{fused_memory_update.launches} fused_memory_update")
+    ops_secs = time.perf_counter() - t_ops
     check(min(launches.values()) > 0,
           f"a path launched a kernel 0 times: {launches}")
     for name in ("exp1", "exp2", "exp3", "exp4"):
@@ -667,11 +1019,14 @@ def main():
         log(f"us per step, mesh {name}: {res['us_per_step']:.1f}")
     log(f"us per step, wide artemis: {wide_res['us_per_step']:.1f} "
         f"(busy share {wide_res['busy_share']})")
-    log(f"mesh phases {mesh_secs:.1f} s; total "
+    log(f"us per step, ops compressed sgd: {ops_res['us_per_step']:.1f} "
+        f"(busy share {ops_res['busy_share']})")
+    log(f"mesh phases {mesh_secs:.1f} s; ops phases {ops_secs:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernel_line(
-        {"fused_memory_update": fused, "ring_sum": ring, "bucket_acc": acc,
-         "bucket_ring_sum": bsum}, launches)))
+        {"fused_memory_update": fused + fused_tiles, "ring_sum": ring,
+         "bucket_acc": acc, "bucket_ring_sum": bsum, "squant_encode": enc,
+         "squant_decode": dec, "dequant_apply": app}, launches)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

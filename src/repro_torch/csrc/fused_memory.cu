@@ -21,9 +21,10 @@
 // Layout: one block per tile; threads stride over the tile's elements, so a
 // tile of any width works (the main path's tiles are single rows of d = 2 to
 // 40 elements) and the ragged edge is masked.  A warp-shuffle plus
-// shared-memory reduction gives the norm.  At d = 2^20 with 20 rows, one
-// block per row keeps only 20 of the 132 SMs busy: splitting a row across
-// blocks (a second pass or a cluster reduction) is a design point for later.
+// shared-memory reduction gives the norm (block_sum.cuh).  At d = 2^20 with
+// 20 rows, one block per row keeps only 20 of the 132 SMs busy: splitting a
+// row across blocks (a second pass or a cluster reduction) is a design point
+// for later.  ops.memory_update runs it on (256, 256) tiles.
 //
 // Rounding: h + alpha * (q * scale) is computed with __fmul_rn/__fadd_rn so
 // that nvcc cannot contract it into an FMA and the plain PyTorch version
@@ -34,26 +35,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block_sum.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
-
-__device__ float block_sum(float v, float* warp_sums) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    const int n_warps = (blockDim.x + 31) >> 5;
-    v = lane < n_warps ? warp_sums[lane] : 0.f;
-    for (int off = 16; off > 0; off >>= 1)
-      v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
-    if (lane == 0) warp_sums[0] = v;
-  }
-  __syncthreads();
-  return warp_sums[0];
-}
 
 __global__ void fused_memory_kernel(const float* __restrict__ g,
                                     const float* __restrict__ h,

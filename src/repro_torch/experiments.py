@@ -1,7 +1,8 @@
 """The paper's headline experiments on the port (``examples/federated_artemis.py``
 exp1 to exp4 and ``benchmarks/paper_figs.py::fig4_bits``), at the reference's
 N, d, iterations and step sizes, and the mesh wire's training run
-(``toy_mesh_train``).  Each returns its numbers; none prints.
+(``toy_mesh_train``), and one step of compressed SGD through the ops API
+(``compressed_sgd_step``).  Each returns its numbers; none prints.
 
 Every function runs on ``device`` (CUDA unless the caller passes another)
 with ``backend="cuda"``, so the squant uplinks go through the fused kernels
@@ -22,6 +23,7 @@ from repro_torch.core import artemis as art
 from repro_torch.core import dist
 from repro_torch.core import federated as fed
 from repro_torch.core import sweep as sw
+from repro_torch.kernels import ops
 from repro_torch.kernels.bucket_ring import bucket_acc, bucket_ring_sum
 from repro_torch.models.toy import ToyMLP
 from repro_torch.optim import sgd
@@ -187,3 +189,23 @@ def toy_mesh_train(variant: str = "artemis", reduce_impl: str = "pipelined",
                          "bucket_ring_sum": bucket_ring_sum.launches - r0},
             "layout": dcfg.layout(list(params.values())).shape,
             "params": state.params}
+
+
+def compressed_sgd_step(model, params: Dict[str, torch.Tensor], batch, lr,
+                        *, s: int = 1, generator=None, uniforms=None):
+    """One step of SGD with a compressed gradient, through the ops API's
+    fused apply: the gradient of ``model.loss`` at ``params``, then for
+    every leaf, in flatten order, ``c, shape = ops.encode(g)`` and
+    ``w = ops.apply_update(w, c, lr, shape)``.  The uniforms come from
+    ``generator``, leaf by leaf, or from ``uniforms``, a list of per-leaf
+    tensors over the packed shapes.  Returns the new params and the loss at
+    ``params``."""
+    grads, (loss, _) = torch.func.grad_and_value(model.loss, has_aux=True)(
+        params, batch)
+    names = sorted(params)               # the flatten order of a flat dict
+    u = [None] * len(names) if uniforms is None else uniforms
+    out = {}
+    for name, ui in zip(names, u):
+        c, shape = ops.encode(grads[name], ui, generator, s=s)
+        out[name] = ops.apply_update(params[name], c, lr, shape)
+    return out, loss

@@ -6,9 +6,14 @@ Each ``csrc/<name>.cu`` compiles on its own with
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>-<hash>.so
 
 into a shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds).  ``<hash>`` covers the source and the flags, so an
-edited source is never served a stale library.  ptxas's register and spill
-report goes to ``lib<name>-<hash>.log`` beside it.
+build takes seconds).  ``<hash>`` covers the source, every file under
+``csrc/`` that is not a kernel source (``*.cu``), and the flags: headers
+shared between kernels (``block_sum.cuh``) count for every library, so an
+edited source or header is never served a stale library.  ptxas's register
+and spill report goes to ``lib<name>-<hash>.log`` beside it.
+
+A library may export several entry points: ``SIGNATURES`` maps each library
+to its functions' C argument types (``squant`` has three).
 
 Nothing builds at import time: the CPU tests import every module, and the
 CPU has no ``nvcc``.
@@ -31,13 +36,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-# argtypes of each library's entry point, in the order of its C signature
+# library -> {entry point: argtypes in the order of its C signature}
 SIGNATURES = {
-    "fused_memory": ("fused_memory_update",
-                     (_P, _P, _P, _F, _I, _LL, _LL, _I, _I, _P, _P, _P, _P)),
-    "ring_sum": ("ring_sum",
-                 (_P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL, _LL, _P)),
-    "bucket_ring": ("bucket_acc", (_P, _P, _P, _P, _LL, _LL, _P)),
+    "fused_memory": {"fused_memory_update": (_P, _P, _P, _F, _I, _LL, _LL,
+                                             _I, _I, _P, _P, _P, _P)},
+    "ring_sum": {"ring_sum": (_P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL, _LL,
+                              _P)},
+    "bucket_ring": {"bucket_acc": (_P, _P, _P, _P, _LL, _LL, _P)},
+    "squant": {
+        "squant_encode": (_P, _I, _P, _I, _I, _LL, _LL, _I, _I, _P, _P, _P),
+        "squant_decode": (_P, _P, _LL, _LL, _I, _I, _P, _I, _P),
+        "dequant_apply": (_P, _I, _P, _P, _F, _LL, _LL, _I, _I, _P, _P)},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -56,9 +65,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + repr(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.iterdir()):
+        if header.is_file() and header.suffix != ".cu":
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(repr(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -103,15 +115,15 @@ def ptxas_report(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name`` (building it first if needed), with the
-    argument and return types of its entry point and error-string function
+    argument and return types of its entry points and error-string function
     declared."""
     lib = _LOADED.get(name)
     if lib is None:
         path = build([name])[name]
         lib = ctypes.CDLL(str(path))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes, err.restype = (ctypes.c_int,), ctypes.c_char_p
         _LOADED[name] = lib

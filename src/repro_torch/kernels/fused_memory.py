@@ -11,7 +11,8 @@ fused_memory_update`` with the hand-written CUDA kernel
 
 and returns ``(q int8 [M, N], scales f32 [M/bm, N/bn], h_new [M, N])``.  The
 Artemis round calls it with ``block=(1, d)``: one worker row per tile, so the
-scale is that worker's L2 norm over s.
+scale is that worker's L2 norm over s.  The compression API
+(``ops.memory_update``) calls it on (256, 256) tiles.
 
 Bound on an H100 SXM: bytes.  Per element it reads g, h, u (12 B) and writes
 q and h_new (5 B), plus one 4 B scale per tile, at 3.35 TB/s.  The kernel
@@ -28,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 DEFAULT_BLOCK = (256, 256)
 
@@ -55,31 +56,10 @@ def _check(g, h, u, s, block) -> Tuple[int, int]:
 def fused_memory_update_plain(g: torch.Tensor, h: torch.Tensor,
                               u: torch.Tensor, alpha: float, *, s: int = 1,
                               block=DEFAULT_BLOCK):
-    """The kernel's arithmetic in plain PyTorch, on any device."""
+    """The kernel's arithmetic in plain PyTorch, on any device
+    (``ref.fused_memory_ref``)."""
     bm, bn = _check(g, h, u, s, block)
-    m, n = g.shape
-    gm, gn = m // bm, n // bn
-
-    def tiles(x):                            # [M, N] -> [gm, gn, bm, bn]
-        return x.reshape(gm, bm, gn, bn).transpose(1, 2)
-
-    delta = g - h
-    dt = tiles(delta)
-    norm = torch.sqrt(torch.sum(dt * dt, dim=(-2, -1), keepdim=True))
-    scale = torch.where(torch.isfinite(norm), norm / s,
-                        torch.zeros_like(norm))
-    safe = torch.where(norm > 0, norm, torch.ones_like(norm))
-    r = dt.abs() / safe * s
-    low = torch.floor(r)
-    psi = low + (tiles(u) < (r - low)).to(torch.float32)
-    qf = torch.sign(dt) * psi
-    q = torch.where(torch.isnan(qf), torch.zeros_like(qf), qf).to(torch.int8)
-    h_new = tiles(h) + alpha * (q.to(torch.float32) * scale)
-
-    def untile(x):                           # [gm, gn, bm, bn] -> [M, N]
-        return x.transpose(1, 2).reshape(m, n)
-
-    return untile(q), scale.reshape(gm, gn), untile(h_new)
+    return ref.fused_memory_ref(g, h, u, alpha, s, bm, bn)
 
 
 def fused_memory_update(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,

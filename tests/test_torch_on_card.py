@@ -10,7 +10,9 @@ Tolerances: int8 levels may differ on fewer than 1e-4 of the entries, each
 by at most 1 (the kernel reduces the norm in another order); scales to
 rtol 1e-6; h_new to rtol 1e-5, atol 1e-6 where the levels agree; ring_sum,
 bucket_acc and bucket_ring_sum bit for bit (the same multiply-then-add, in
-worker order), and so the pipelined mesh ring equals the sequential one.
+worker order), and so the pipelined mesh ring equals the sequential one;
+squant_decode and dequant_apply bit for bit, in f32 and in bf16 (the same
+operations, each rounded to the output type).
 """
 import pytest
 import torch
@@ -19,7 +21,10 @@ from repro_torch import experiments
 from repro_torch.core import artemis as tart
 from repro_torch.kernels import bucket_ring as tbr
 from repro_torch.kernels import fused_memory as tfm
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ring_sum as trs
+from repro_torch.kernels import squant as tsq
+from repro_torch.models.toy import ToyMLP
 
 
 @pytest.fixture
@@ -147,3 +152,113 @@ def test_mesh_pipelined_equals_sequential(cuda_device):
     assert runs[0]["launches"]["bucket_acc"] == 3 * 4
     for k, p in runs[0]["params"].items():
         assert torch.equal(p, runs[1]["params"][k])
+
+
+# ---------------------------------------------------------------------------
+# the ops API's kernels: squant encode, decode, dequant_apply and B1 on
+# (256, 256) tiles
+# ---------------------------------------------------------------------------
+
+# [4096, 256]: one ToyMLP(12, 1024) weight as the ops API packs it;
+# [1024, 2048]: a probe of 32 tiles in two tile columns
+OPS_SHAPES = [(4096, 256), (1024, 2048)]
+BF16 = torch.bfloat16
+
+
+def assert_levels_close(q, qr):
+    diff = (q.int() - qr.int()).abs()
+    assert float((diff != 0).float().mean()) < 1e-4
+    assert int(diff.max()) <= 1
+    return diff == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", OPS_SHAPES)
+@pytest.mark.parametrize("xdt,udt", [(torch.float32, torch.float32),
+                                     (BF16, BF16), (torch.float32, BF16)])
+def test_squant_encode_kernel_matches_plain(cuda_device, shape, xdt, udt):
+    x, _, u = _rand(shape, sum(shape), cuda_device)
+    x, u = x.to(xdt), u.to(udt)
+    before = tsq.squant_encode.launches
+    q, sc = tsq.squant_encode(x, u, s=4)
+    torch.cuda.synchronize()
+    assert tsq.squant_encode.launches == before + 1
+    qr, scr = tsq.squant_encode_plain(x, u, s=4)
+    assert_levels_close(q, qr)
+    torch.testing.assert_close(sc, scr, rtol=1e-6, atol=0)
+    # deterministic: the same inputs give the same levels
+    assert torch.equal(tsq.squant_encode(x, u, s=4)[0], q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", OPS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_squant_decode_and_apply_kernels_match_plain(cuda_device, shape,
+                                                     dtype):
+    x, w, u = _rand(shape, 2 * sum(shape), cuda_device)
+    q, sc = tsq.squant_encode(x, u, s=1)
+    d0, a0 = tsq.squant_decode.launches, tsq.dequant_apply.launches
+    out = tsq.squant_decode(q, sc, dtype=dtype)
+    w = w.to(dtype)
+    new = tsq.dequant_apply(w, q, sc, 0.01)
+    torch.cuda.synchronize()
+    assert (tsq.squant_decode.launches, tsq.dequant_apply.launches) == \
+        (d0 + 1, a0 + 1)
+    assert out.dtype == dtype and new.dtype == dtype
+    assert torch.equal(out, tsq.squant_decode_plain(q, sc, dtype=dtype))
+    assert torch.equal(new, tsq.dequant_apply_plain(w, q, sc, 0.01))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", OPS_SHAPES)
+def test_fused_memory_kernel_on_2d_tiles(cuda_device, shape):
+    """B1 on the ops API's (256, 256) tiles."""
+    g, h, u = _rand(shape, 3 * sum(shape), cuda_device)
+    q, sc, hn = tfm.fused_memory_update(g, h, u, 0.5, s=1, block=(256, 256))
+    qr, scr, hnr = tfm.fused_memory_update_plain(g, h, u, 0.5, s=1,
+                                                 block=(256, 256))
+    agree = assert_levels_close(q, qr)
+    torch.testing.assert_close(sc, scr, rtol=1e-6, atol=0)
+    torch.testing.assert_close(hn[agree], hnr[agree], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_squant_kernels_nan_tile(cuda_device):
+    """An all-NaN tile ships a zero scale; decode and apply give exact
+    zeros and an unchanged w there."""
+    x, w, u = _rand((512, 256), 5, cuda_device)
+    x[256:] = float("nan")
+    q, sc = tsq.squant_encode(x, u, s=1)
+    assert float(sc[1, 0]) == 0.0 and not q[256:].any()
+    assert torch.equal(tsq.squant_decode(q, sc)[256:],
+                       torch.zeros(256, 256, device=cuda_device))
+    assert torch.equal(tsq.dequant_apply(w, q, sc, 0.5)[256:], w[256:])
+
+
+@pytest.mark.cuda
+def test_tree_memory_update_on_card(cuda_device):
+    """One tree_memory_update over a ToyMLP(2, 64) gradient tree through B1
+    and B6, against the same call on the CPU's plain versions."""
+    model = ToyMLP(2, 64).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = model.init(gen)
+    batch = model.batch(gen, n=32)
+    grads = torch.func.grad(lambda p: model.loss(p, batch)[0])(params)
+    h = {k: 0.1 * torch.randn(v.shape, generator=gen, device=cuda_device)
+         for k, v in grads.items()}
+    u = [torch.rand(256, 256, generator=gen, device=cuda_device)
+         for _ in grads]
+    f0, d0 = tfm.fused_memory_update.launches, tsq.squant_decode.launches
+    dh, hn = tops.tree_memory_update(grads, h, 0.5, u, s=1)
+    torch.cuda.synchronize()
+    assert tfm.fused_memory_update.launches == f0 + len(grads)
+    assert tsq.squant_decode.launches == d0 + len(grads)
+    cpu = lambda t: {k: v.cpu() for k, v in t.items()}   # noqa: E731
+    dh_c, hn_c = tops.tree_memory_update(cpu(grads), cpu(h), 0.5,
+                                         [x.cpu() for x in u], s=1)
+    for k in grads:
+        assert dh[k].shape == grads[k].shape
+        torch.testing.assert_close(hn[k], h[k] + 0.5 * dh[k], rtol=1e-5,
+                                   atol=1e-6)
+        torch.testing.assert_close(hn[k].cpu(), hn_c[k], rtol=1e-5,
+                                   atol=1e-6)
