@@ -9,7 +9,9 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
 2. build: every kernel of the path from ``src/repro_torch/csrc`` with nvcc,
    one process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at one large probe, with CUDA-event times;
+   the main path's shapes and at one large probe, with device times; the
+   ring's in-place hop (``bucket_acc_hop_``) at the mesh and wide stacks,
+   hops 0 and 1;
 4. slice: the paper's experiments exp1 to exp4 through ``run_sweep`` with
    ``backend="cuda"``; the four claims must hold and every squant-uplink
    variant must have launched both kernels once per round;
@@ -29,12 +31,14 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
 8. wide: ToyMLP(12, 1024) (12.6 M parameters) with the default
    ``DistConfig`` layout [16, 3076, 256], artemis, sgd(0.01), W = 8, 10
    steps after 2 of warm-up, under ``torch.profiler``: µs per step, the
-   device-busy share and the top device kernels; the loss must fall;
+   device-busy share, the peak device memory, the top device kernels and
+   any roll among them; the loss must fall;
 9. ops kernels: the compression API's kernels (squant_encode, squant_decode
    to f32 and bf16, dequant_apply in f32 and bf16, and fused_memory_update
    on (256, 256) tiles) against their plain versions at [4096, 256] (one
    ToyMLP(12, 1024) weight as the API packs it) and at a [16384, 4096]
-   probe, with device times, bounds and one-call library times;
+   probe, with device times, bounds and one-call library times; decode
+   also on (256, 8) blocks, which take one element a thread;
 10. ops: the compression API (``repro_torch.kernels.ops``) on ToyMLP(12,
    1024): ``tree_compress`` of a gradient tree (finite, shapes, signs),
    ``tree_memory_update`` twice (h_new = h + alpha * delta_hat), then 10
@@ -55,6 +59,7 @@ It imports nothing of JAX or of the JAX package.
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -77,12 +82,15 @@ GRID_MULTS = [2.0 ** (-0.5 * i) for i in range(8)]
 GRID_SEEDS = list(range(16))
 
 # mesh-wire shapes: W = 8 workers; ToyMLP(12, 64) lays out as [16, 49, 64]
-# (the main path), ToyMLP(12, 1024) under the default DistConfig as
-# [16, 3076, 256] (the wide probe).  bucket_acc sees [W * B, R, C]
+# (the mesh phase), ToyMLP(12, 1024) under the default DistConfig as
+# [16, 3076, 256] (the wide phase, where the ring spends its time, so
+# bucket_acc's main shape).  bucket_acc sees [W * B, R, C] out of place, and
+# the ring's in-place hops see the [W, B, R, C] stack
 W = 8
 ACC_CASES = [(W * 16, 49, 64), (W * 16, 3076, 256)]
 BSUM_CASES = [(W, 16, 49, 64), (W, 16, 3076, 256)]
-MAIN_ACC, MAIN_BSUM = ACC_CASES[0], BSUM_CASES[0]
+HOP_CASES = BSUM_CASES
+MAIN_ACC, MAIN_BSUM = ACC_CASES[1], BSUM_CASES[0]
 MESH_STEPS, WIDE_STEPS = 20, 10
 
 # compression-API shapes: ops._pack lays a ToyMLP(12, 1024) weight
@@ -315,10 +323,48 @@ def acc_case(dev, shape, seed):
     # reads acc (4 B) and q (1 B), writes out (4 B) per element, reads one
     # 4 B scale per row; a multiply and an add per element
     b_ms, b_by = bound(9 * n_el + 4 * rows, 2 * n_el)
-    lib = library_ms(lambda: torch.addcmul(acc, q, scales))
+    lib, lib_kernels = _library_one_kernel(
+        lambda: torch.addcmul(acc, q, scales))
     return dict(shape=list(shape), max_abs_err=err, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib, library="torch.addcmul",
-                **times)
+                library_kernels=lib_kernels, **times)
+
+
+def hop_case(dev, shape, hop, seed):
+    """One hop of the simulated ring, in place over the [W, B, R, C] stack.
+    The accumulator starts as NaN, which hop 0 must not read."""
+    import torch
+    from repro_torch.kernels.bucket_ring import (
+        bucket_acc, bucket_acc_hop_, bucket_acc_hop_plain_)
+    _, q, scales = _payload(dev, shape, seed)
+    acc = torch.full(shape, float("nan"), device=dev)
+    ref = acc.clone()
+    if hop:
+        bucket_acc_hop_plain_(acc, q, scales, 0)
+        ref.copy_(acc)
+    before = bucket_acc.launches
+    out = bucket_acc_hop_(acc, q, scales, hop)
+    torch.cuda.synchronize()
+    check(bucket_acc.launches == before + 1 and out is acc,
+          "bucket_acc_hop_ did not count its launch or left acc")
+    bucket_acc_hop_plain_(ref, q, scales, hop)
+    err = float((acc - ref).abs().max())
+    name = f"bucket_acc_hop_ {list(shape)} hop {hop}"
+    check(torch.equal(acc, ref), f"{name}: differs from its plain version "
+                                 f"by {err}")
+    n_el, rows = q.numel(), q.numel() // shape[-1]
+    # reads q (1 B) and, after hop 0, acc (4 B), writes acc (4 B) per
+    # element, reads one 4 B scale per row; a multiply and an add per element
+    b_ms, b_by = bound((9 if hop else 5) * n_el + 4 * rows, 2 * n_el)
+    # the same bytes without the worker offset: one in-place addcmul_
+    lib, lib_kernels = _library_one_kernel(
+        lambda: ref.addcmul_(q, scales))
+    return dict(shape=list(shape), hop=hop, max_abs_err=err, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib,
+                library="Tensor.addcmul_ (no worker offset)",
+                library_kernels=lib_kernels, **timings(
+                    lambda: bucket_acc_hop_(acc, q, scales, hop),
+                    lambda: bucket_acc_hop_plain_(ref, q, scales, hop)))
 
 
 def bsum_case(dev, shape, seed):
@@ -354,10 +400,13 @@ def bsum_case(dev, shape, seed):
 
 def mesh_kernel_phase(dev):
     acc = [acc_case(dev, sh, 20 + i) for i, sh in enumerate(ACC_CASES)]
+    acc += [hop_case(dev, sh, hop, 25 + i) for i, sh in enumerate(HOP_CASES)
+            for hop in (0, 1)]
     bsum = [bsum_case(dev, sh, 30 + i) for i, sh in enumerate(BSUM_CASES)]
     for name, cases in (("bucket_acc", acc), ("bucket_ring_sum", bsum)):
         for cs in cases:
-            log(f"kernel {name} {cs['shape']}: device {_us(cs['ms'])} "
+            hop = f" hop {cs['hop']}" if "hop" in cs else ""
+            log(f"kernel {name} {cs['shape']}{hop}: device {_us(cs['ms'])} "
                 f"(plain {_us(cs['plain_ms'])}, library "
                 f"{_us(cs['library_ms'])}), per call {_us(cs['call_ms'])} "
                 f"(plain {_us(cs['plain_call_ms'])}), bound "
@@ -605,6 +654,7 @@ def wide_phase(dev):
     for _ in range(2):                                  # warm-up
         state, (loss0, _) = step_fn(state, batch)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     a0 = bucket_acc.launches
     losses = []
 
@@ -615,6 +665,7 @@ def wide_phase(dev):
             losses.append(loss)
 
     wall_us, dev_us, busy, n_ops, top = profiled(run)
+    peak = torch.cuda.max_memory_allocated(dev)
     losses = [float(x) for x in losses]
     check(all(math.isfinite(x) for x in losses) and losses[-1] < float(loss0),
           f"wide: loss {float(loss0)} -> {losses} did not fall")
@@ -627,11 +678,15 @@ def wide_phase(dev):
         f"{wall_us / WIDE_STEPS:.1f} us per step, device busy "
         f"{dev_us / WIDE_STEPS:.1f} us per step, share {_fmt_share(busy)}, "
         f"{n_ops / WIDE_STEPS:.1f} device ops per step, loss "
-        f"{float(loss0):.6f} -> {losses[-1]:.6f}")
+        f"{float(loss0):.6f} -> {losses[-1]:.6f}, peak memory {peak} bytes")
     log_top(top)
+    # torch.roll's kernel (at::native::roll_cuda_kernel), not "unrolled_..."
+    rolls = [key for key, _, _ in top if re.search(r"(?<![A-Za-z])roll", key)]
+    log(f"wide: roll kernels among the top device ops: {rolls or 'none'}")
     return {"us_per_step": wall_us / WIDE_STEPS, "busy_share": busy,
             "device_us_per_step": dev_us / WIDE_STEPS, "top": top,
-            "layout": list(layout.shape), "launches": launched}
+            "layout": list(layout.shape), "launches": launched,
+            "peak_bytes": peak, "top_rolls": rolls}
 
 
 def _library_one_kernel(fn):
@@ -646,13 +701,13 @@ def _library_one_kernel(fn):
     return library_ms(fn), names
 
 
-def _tiles(shape):
-    return (shape[0] // OPS_BLOCK[0]) * (shape[1] // OPS_BLOCK[1])
+def _tiles(shape, block=OPS_BLOCK):
+    return (shape[0] // block[0]) * (shape[1] // block[1])
 
 
-def _tile_views(shape):
+def _tile_views(shape, block=OPS_BLOCK):
     """[M, N] -> [gm, bm, gn, bn] and the scales' broadcast [gm, 1, gn, 1]."""
-    (m, n), (bm, bn) = shape, OPS_BLOCK
+    (m, n), (bm, bn) = shape, block
     return (m // bm, bm, n // bn, bn), (m // bm, 1, n // bn, 1)
 
 
@@ -697,47 +752,49 @@ def encode_case(dev, shape, xdt, udt, seed, timed=True):
     return out
 
 
-def _payload2d(dev, shape, seed):
+def _payload2d(dev, shape, seed, block=OPS_BLOCK):
     import torch
     from repro_torch.kernels.squant import squant_encode
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(shape, generator=gen, device=dev)
     u = torch.rand(shape, generator=gen, device=dev)
     w = torch.randn(shape, generator=gen, device=dev)
-    q, sc = squant_encode(x, u, s=OPS_S, block=OPS_BLOCK)
+    q, sc = squant_encode(x, u, s=OPS_S, block=block)
     return w, q, sc
 
 
-def decode_case(dev, shape, dtype, seed):
+def decode_case(dev, shape, dtype, seed, block=OPS_BLOCK):
+    """A block of width 16k takes the kernel's 16-element chunks; any other
+    width one element a thread."""
     import torch
     from repro_torch.kernels.squant import squant_decode, squant_decode_plain
-    _, q, sc = _payload2d(dev, shape, seed)
+    _, q, sc = _payload2d(dev, shape, seed, block)
     before = squant_decode.launches
-    out = squant_decode(q, sc, block=OPS_BLOCK, dtype=dtype)
+    out = squant_decode(q, sc, block=block, dtype=dtype)
     torch.cuda.synchronize()
     check(squant_decode.launches == before + 1,
           "squant_decode did not count its launch")
-    ref = squant_decode_plain(q, sc, block=OPS_BLOCK, dtype=dtype)
+    ref = squant_decode_plain(q, sc, block=block, dtype=dtype)
     err = float((out.float() - ref.float()).abs().max())
-    name = f"squant_decode {list(shape)} to {_dt(dtype)}"
+    name = f"squant_decode {list(shape)} in {block} to {_dt(dtype)}"
     check(torch.equal(out, ref), f"{name}: differs from its plain version "
                                  f"by {err}")
     n_el = q.numel()
     # reads the levels, writes the values, per element; one 4 B scale per
     # tile; one multiply per element
-    b_ms, b_by = bound((1 + out.element_size()) * n_el + 4 * _tiles(shape),
-                       n_el)
+    b_ms, b_by = bound((1 + out.element_size()) * n_el
+                       + 4 * _tiles(shape, block), n_el)
     lib, lib_kernels = None, None
     if dtype == torch.float32:
-        qv, sv = _tile_views(shape)
+        qv, sv = _tile_views(shape, block)
         lib, lib_kernels = _library_one_kernel(
             lambda: torch.mul(q.view(qv), sc.view(sv)))
-    return dict(shape=list(shape), dtype=_dt(dtype), max_abs_err=err,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                library="torch.mul", library_kernels=lib_kernels, **timings(
-                    lambda: squant_decode(q, sc, block=OPS_BLOCK,
-                                          dtype=dtype),
-                    lambda: squant_decode_plain(q, sc, block=OPS_BLOCK,
+    return dict(shape=list(shape), block=list(block), dtype=_dt(dtype),
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, library="torch.mul",
+                library_kernels=lib_kernels, **timings(
+                    lambda: squant_decode(q, sc, block=block, dtype=dtype),
+                    lambda: squant_decode_plain(q, sc, block=block,
                                                 dtype=dtype)))
 
 
@@ -822,6 +879,8 @@ def ops_kernel_phase(dev):
             encode_case(dev, MAIN_OPS, f32, bf16, 43, timed=False)]
     dec = [decode_case(dev, sh, dt, 50 + i)
            for i, sh in enumerate(OPS_CASES) for dt in (f32, bf16)]
+    # a block 8 wide: one element a thread
+    dec += [decode_case(dev, MAIN_OPS, f32, 52, block=(256, 8))]
     app = [apply_case(dev, sh, dt, 60 + i)
            for i, sh in enumerate(OPS_CASES) for dt in (f32, bf16)]
     fused = [fused_tile_case(dev, sh, 70 + i)
@@ -834,7 +893,9 @@ def ops_kernel_phase(dev):
                 log(f"kernel {name} {cs['shape']} {cs['dtype']}: agrees "
                     f"(level mismatch {cs['level_mismatch']:.3g})")
                 continue
-            log(f"kernel {name} {cs['shape']} {cs.get('dtype', 'f32')}: "
+            block = f" in {tuple(cs['block'])}" if "block" in cs else ""
+            log(f"kernel {name} {cs['shape']}{block} "
+                f"{cs.get('dtype', 'f32')}: "
                 f"device {_us(cs['ms'])} (plain {_us(cs['plain_ms'])}, "
                 f"library {_us(cs.get('library_ms'))}), per call "
                 f"{_us(cs['call_ms'])} (plain {_us(cs['plain_call_ms'])}), "

@@ -6,8 +6,9 @@ The reference runs W workers as slices of a device mesh inside a
 ``shard_map``.  Here the W workers are a leading ``[W]`` axis on one card:
 every per-worker tensor is a ``[W, ...]`` stack, each worker's gradient
 comes from ``torch.func.vmap`` over that axis, and a ring hop (the
-reference's ``ppermute`` from worker j to j+1) is ``torch.roll`` of the
-payload stack by one along it.
+reference's ``ppermute`` from worker j to j+1) moves the payload stack one
+worker on along it: an offset in the kernel's index on the pipelined ring,
+``torch.roll`` on the sequential one.
 
 Wire layer (``wire="bucketed"``, DESIGN.md §7): the gradient is flattened
 into ``<= K`` equal f32 buckets (``core/bucketing.py``), every bucket row is
@@ -15,8 +16,9 @@ squant-encoded into ``int8 levels + f32 row-scales``, and the payloads go
 round the ring.  ``reduce_impl`` picks the transport:
 
   * ``"pipelined"`` (default): the reference's ``bucket_ring_reduce``.
-    Each hop rolls the payload on and folds the payload it holds into the
-    accumulator with the ``bucket_acc`` kernel; W launches per step.
+    Each hop folds the payload that has reached each worker into one
+    accumulator, in place, with the ``bucket_acc`` kernel
+    (``bucket_acc_hop_``); W launches per step.
   * ``"sequential"``: the decode-then-add ring, in plain PyTorch.  Worker
     w adds its own payload, then w-1's, w-2's, ... in both transports, so
     the two are equal bit for bit.
@@ -51,7 +53,7 @@ from repro_torch.core import bucketing
 from repro_torch.core import codec as wire
 from repro_torch.core import faults as FLT
 from repro_torch.core.noise import MeshDraws, MeshNoise, MeshNoiseSource
-from repro_torch.kernels.bucket_ring import bucket_acc, bucket_ring_sum
+from repro_torch.kernels.bucket_ring import bucket_acc_hop_, bucket_ring_sum
 
 VARIANTS = ("sgd", "qsgd", "diana", "biqsgd", "artemis", "dore")
 
@@ -176,29 +178,22 @@ def _roll(payload: wire.WirePayload) -> wire.WirePayload:
                               for k, v in payload.data.items()})
 
 
-def payload_acc(codec: wire.Codec, acc: torch.Tensor,
-                payload: wire.WirePayload) -> torch.Tensor:
-    """One dequant-accumulate: the row-scale payload rides the
-    ``bucket_acc`` kernel; any other codec decodes, then adds."""
-    if codec.fused_acc:
-        return bucket_acc(acc, payload["levels"], payload["scales"])
-    return acc + codec.decode(payload)
-
-
 def bucket_ring_reduce(codec: wire.Codec, payload: wire.WirePayload,
                        n: int) -> torch.Tensor:
-    """The pipelined ring over a ``[W, B, R, C]`` payload stack: each hop
-    rolls the payload on and folds the payload it holds into the
-    accumulator, so worker w sums its own, then w-1's, w-2's, ...
-    Returns every worker's sum, ``[W, B, R, C]``."""
-    acc = torch.zeros(payload.meta.shape, dtype=torch.float32,
-                      device=payload.leaves()[0].device)
-    held = payload
-    for _ in range(n - 1):
-        arriving = _roll(held)
-        acc = payload_acc(codec, acc, held)
-        held = arriving
-    return payload_acc(codec, acc, held)
+    """The pipelined ring over a ``[W, B, R, C]`` payload stack: at hop j
+    worker w folds in the payload of worker w - j, so it sums its own, then
+    w-1's, w-2's, ...  The row-scale payload rides ``bucket_acc_hop_``:
+    one accumulator, W launches in place, the hop's source worker in the
+    kernel's index and no roll of the levels.  Any other codec takes the
+    decode-then-add ring.  Returns every worker's sum,
+    ``[W, B, R, C]``."""
+    if not codec.fused_acc:
+        return bucket_ring_reduce_sequential(codec, payload, n)
+    q, scales = payload["levels"], payload["scales"]
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for hop in range(n):
+        bucket_acc_hop_(acc, q, scales, hop)
+    return acc
 
 
 def bucket_ring_reduce_sequential(codec: wire.Codec,

@@ -31,10 +31,20 @@
 // few tiles (16 blocks on 132 SMs at [4096, 256]): splitting a tile's
 // reduction across blocks is a design point for later.
 //
-// decode and dequant_apply: elementwise over a 2-D grid, one row of the
-// array per blockIdx.y (striding when M > 65535) and one element per thread
-// along it; each thread reads its tile's scale, which the threads of a row
-// share through the cache.
+// decode: a grid-stride loop over chunks of 16 consecutive elements of a
+// row, sized to a few waves of the card's SMs (grid.cuh: 256 blocks at
+// [4096, 256], not one per row).  When N and bn are multiples of 16 and q and
+// out are 16-byte aligned, a chunk lies in one tile: a thread makes one
+// 16-byte load of q and one scale load; a warp's 32 chunks are 512
+// consecutive values, and the warp trades levels and scales through shared
+// memory so that each thread's 16-byte stores (four in f32, two of 8 bf16 in
+// bf16) cover 512 contiguous bytes across the warp.  Any other block takes
+// one element a thread in the same kernel.
+//
+// dequant_apply: elementwise over a 2-D grid, one row of the array per
+// blockIdx.y (striding when M > 65535) and one element per thread along it;
+// each thread reads its tile's scale, which the threads of a row share
+// through the cache.
 //
 // Rounding: the arithmetic uses __fmul_rn/__fsub_rn/__fdiv_rn/__fsqrt_rn so
 // that nvcc cannot contract it into an FMA (and with IEEE division, not the
@@ -51,11 +61,14 @@
 #include <stdint.h>
 
 #include "block_sum.cuh"
+#include "grid.cuh"
 
 namespace {
 
 constexpr int kMaxThreads = 1024;   // encode: threads per tile
 constexpr int kThreads = 256;       // decode, dequant_apply: threads per block
+constexpr int kWaves = 4;           // decode: at most 4 waves of blocks
+constexpr int kVec = 16;            // decode: elements a thread takes
 
 __device__ __forceinline__ float load(const float* p, long long i) {
   return p[i];
@@ -122,19 +135,80 @@ __global__ void squant_encode_kernel(const TX* __restrict__ x,
   }
 }
 
-template <typename T>
+// 16 bytes of T at p (16-byte aligned): 4 f32 or 8 bf16 values, each
+// rounded to T
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+  __nv_bfloat162 h[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+  *reinterpret_cast<int4*>(p) = *reinterpret_cast<const int4*>(h);
+}
+
+// kE = 16: the vector path; kE = 1: one element a thread
+template <typename T, int kE>
 __global__ void squant_decode_kernel(const int8_t* __restrict__ q,
                                      const float* __restrict__ scales,
-                                     long long m, int n, int bm, int bn,
+                                     long long m, long long n, int bm, int bn,
                                      long long tiles_per_row,
                                      T* __restrict__ out) {
-  for (long long row = blockIdx.y; row < m; row += gridDim.y) {
-    const long long tile_row = (row / bm) * tiles_per_row;
-    for (int col = blockIdx.x * blockDim.x + threadIdx.x; col < n;
-         col += gridDim.x * blockDim.x) {
-      const long long i = row * n + col;
-      const float sc = round_to<T>(scales[tile_row + col / bn]);
-      store(out, i, __fmul_rn((float)q[i], sc));
+  constexpr int kPer = 16 / sizeof(T);     // values in a 16-byte store
+  __shared__ int4 levels[kThreads];
+  __shared__ float tile_scale[kThreads];
+  const int lane = threadIdx.x & 31, warp0 = threadIdx.x - lane;
+  const long long total = m * n / kE;
+  // a warp takes 32 consecutive chunks; chunk k is out[k * kE ...]
+  for (long long k0 = blockIdx.x * (long long)blockDim.x + warp0;
+       k0 < total; k0 += (long long)gridDim.x * blockDim.x) {
+    const long long k = k0 + lane;
+    const bool live = k < total;
+    const long long i = k * kE;
+    float sc = 0.f;
+    if (live) {
+      const long long row = i / n;
+      const long long col = i - row * n;
+      sc = round_to<T>(scales[(row / bm) * tiles_per_row + col / bn]);
+    }
+    if constexpr (kE == 1) {
+      if (live) store(out, i, __fmul_rn((float)q[i], sc));
+    } else if (k0 + 32 <= total) {
+      // The warp's 32 chunks are 512 consecutive values.  Each lane loads
+      // its chunk's 16 levels and scale, and the warp trades them through
+      // shared memory, so that every 16-byte store of the warp covers 512
+      // contiguous bytes.
+      levels[threadIdx.x] = *reinterpret_cast<const int4*>(q + i);
+      tile_scale[threadIdx.x] = sc;
+      __syncwarp();
+      const int8_t* lv = reinterpret_cast<const int8_t*>(levels + warp0);
+      T* base = out + k0 * kE;
+#pragma unroll
+      for (int v = 0; v < kE / kPer; ++v) {
+        const int j = v * 32 + lane;           // the warp's j-th store
+        int words[kPer / 4];
+#pragma unroll
+        for (int t = 0; t < kPer / 4; ++t)
+          words[t] = reinterpret_cast<const int*>(lv)[j * (kPer / 4) + t];
+        const int8_t* b = reinterpret_cast<const int8_t*>(words);
+        const float s_j = tile_scale[warp0 + j * kPer / kE];
+        float x[kPer];
+#pragma unroll
+        for (int t = 0; t < kPer; ++t) x[t] = __fmul_rn((float)b[t], s_j);
+        store_vec(base + j * kPer, x);
+      }
+      __syncwarp();
+    } else if (live) {
+      // the array's last, partial warp: each lane its own chunk
+      const int4 qv = *reinterpret_cast<const int4*>(q + i);
+      const int8_t* b = reinterpret_cast<const int8_t*>(&qv);
+      float x[kE];
+#pragma unroll
+      for (int t = 0; t < kE; ++t) x[t] = __fmul_rn((float)b[t], sc);
+#pragma unroll
+      for (int v = 0; v < kE / kPer; ++v) store_vec(out + i + v * kPer,
+                                                  x + v * kPer);
     }
   }
 }
@@ -164,6 +238,16 @@ int encode_threads(long long tile_elems) {
   int threads = 32;
   while (threads < kMaxThreads && threads < tile_elems) threads <<= 1;
   return threads;
+}
+
+template <typename T, int kE>
+int decode(const int8_t* q, const float* scales, long long m, long long n,
+           int bm, int bn, void* out, cudaStream_t stream) {
+  const unsigned int blocks = stride_grid(squant_decode_kernel<T, kE>,
+                                          m * n / kE, kThreads, kWaves);
+  squant_decode_kernel<T, kE><<<blocks, kThreads, 0, stream>>>(
+      q, scales, m, n, bm, bn, n / bn, (T*)out);
+  return (int)cudaGetLastError();
 }
 
 dim3 elementwise_grid(long long m, long long n) {
@@ -214,15 +298,14 @@ int squant_decode(const int8_t* q, const float* scales, long long m,
                   long long n, int bm, int bn, void* out, int out_bf16,
                   void* stream) {
   if (m == 0 || n == 0) return (int)cudaSuccess;
-  const dim3 grid = elementwise_grid(m, n);
+  const bool vec = n % kVec == 0 && bn % kVec == 0 && aligned16(q) &&
+                   aligned16(out);
   cudaStream_t st = (cudaStream_t)stream;
   if (out_bf16)
-    squant_decode_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        q, scales, m, (int)n, bm, bn, n / bn, (__nv_bfloat16*)out);
-  else
-    squant_decode_kernel<float><<<grid, kThreads, 0, st>>>(
-        q, scales, m, (int)n, bm, bn, n / bn, (float*)out);
-  return (int)cudaGetLastError();
+    return vec ? decode<__nv_bfloat16, kVec>(q, scales, m, n, bm, bn, out, st)
+               : decode<__nv_bfloat16, 1>(q, scales, m, n, bm, bn, out, st);
+  return vec ? decode<float, kVec>(q, scales, m, n, bm, bn, out, st)
+             : decode<float, 1>(q, scales, m, n, bm, bn, out, st);
 }
 
 // w, q, out: [m, n] row-major (n < 2^31); scales: [m / bm, n / bn]; w and

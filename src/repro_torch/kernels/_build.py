@@ -8,9 +8,10 @@ Each ``csrc/<name>.cu`` compiles on its own with
 into a shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds).  ``<hash>`` covers the source, every file under
 ``csrc/`` that is not a kernel source (``*.cu``), and the flags: headers
-shared between kernels (``block_sum.cuh``) count for every library, so an
-edited source or header is never served a stale library.  ptxas's register
-and spill report goes to ``lib<name>-<hash>.log`` beside it.
+shared between kernels (``block_sum.cuh``, ``grid.cuh``) count for every
+library, so an edited source or header is never served a stale library.
+ptxas's register and spill report goes to ``lib<name>-<hash>.log`` beside
+it.
 
 A library may export several entry points: ``SIGNATURES`` maps each library
 to its functions' C argument types (``squant`` has three).
@@ -42,7 +43,8 @@ SIGNATURES = {
                                              _I, _I, _P, _P, _P, _P)},
     "ring_sum": {"ring_sum": (_P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL, _LL,
                               _P)},
-    "bucket_ring": {"bucket_acc": (_P, _P, _P, _P, _LL, _LL, _P)},
+    "bucket_ring": {"bucket_acc_hop": (_P, _P, _P, _P, _LL, _LL, _LL, _LL,
+                                       _P)},
     "squant": {
         "squant_encode": (_P, _I, _P, _I, _I, _LL, _LL, _I, _I, _P, _P, _P),
         "squant_decode": (_P, _P, _LL, _LL, _I, _I, _P, _I, _P),

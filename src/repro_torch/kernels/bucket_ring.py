@@ -4,14 +4,20 @@
 ``repro/kernels/bucket_ring.py::bucket_acc`` with the hand-written CUDA
 kernel ``csrc/bucket_ring.cu``: one ring hop folds the arriving payload,
 ``q [..., R, C] int8`` levels and ``scales [..., R, 1] f32`` per-row scales,
-into the f32 accumulator, ``acc + float(q) * scales``.  The leading axes may
-be any number; the simulated ring hands it ``[W, B, R, C]`` and the wrapper
-flattens them to one.  The reference's ``block_rows`` tiles TPU VMEM and has
-no meaning on the card, so it is dropped.
+into the f32 accumulator, ``acc + float(q) * scales``, in a new tensor.  The
+leading axes may be any number.  The reference's ``block_rows`` tiles TPU
+VMEM and has no meaning on the card, so it is dropped.
+
+``bucket_acc_hop_`` is the same fold for one hop of the simulated ring over
+a ``[W, B, R, C]`` stack, in place: worker w adds the payload of worker
+``(w - hop) mod W``, the one ``torch.roll(q, hop, 0)`` puts in its slot, so
+the ring needs no roll of the levels; hop 0 starts the sum.  Both wrappers
+launch the same kernel, and both count in ``bucket_acc.launches``.
 
 Bound on an H100 SXM: bytes (4 + 1 read and 4 written per element, 4 per row
-of scales, at 3.35 TB/s).  The kernel rounds the multiply and the add
-separately, so a chain of hops equals the decode-then-add ring bit for bit.
+of scales, at 3.35 TB/s; hop 0 reads no accumulator).  The kernel rounds the
+multiply and the add separately, so a chain of hops equals the
+decode-then-add ring bit for bit.
 
 ``bucket_ring_sum`` is the all-at-once reduce, ``sum_i q[i] * scales[i]``
 over ``[N, B, R, C]``: the same function as ``ring_sum`` on the view
@@ -20,8 +26,8 @@ launches the hand-written ``csrc/ring_sum.cu`` on that view.  It is the
 oracle of the hop chain, and the mesh's ``reduce_impl="psum"`` on the
 simulated worker axis.
 
-Both wrappers launch their kernel for CUDA tensors (or raise) and take their
-plain versions only for CPU tensors; ``bucket_acc.launches`` and
+Every wrapper launches its kernel for CUDA tensors (or raises) and takes its
+plain version only for CPU tensors; ``bucket_acc.launches`` and
 ``bucket_ring_sum.launches`` count kernel launches.
 """
 from __future__ import annotations
@@ -54,32 +60,81 @@ def bucket_acc_plain(acc: torch.Tensor, q: torch.Tensor,
     return acc + q.to(torch.float32) * scales
 
 
+def _launch(acc_in, q: torch.Tensor, scales: torch.Tensor,
+            out: torch.Tensor, w: int, hop: int) -> None:
+    """One launch of the hop kernel over ``q`` as ``[w, S]``; ``acc_in`` is
+    None to start the sum from 0.0."""
+    if not all(t is None or t.is_contiguous()
+               for t in (acc_in, out, q, scales)):
+        raise ValueError("bucket_acc needs contiguous acc, q and scales")
+    c = q.shape[-1]
+    lib = _build.load("bucket_ring")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.bucket_acc_hop(
+            None if acc_in is None else acc_in.data_ptr(), q.data_ptr(),
+            scales.data_ptr(), out.data_ptr(), w, q.numel() // w, c, hop,
+            stream)
+    _build.check("bucket_ring", code)
+    bucket_acc.launches += 1
+
+
+def _on_card(name: str, q: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch), False for a CPU one (plain)."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    return q.device.type == "cuda"
+
+
 def bucket_acc(acc: torch.Tensor, q: torch.Tensor,
                scales: torch.Tensor) -> torch.Tensor:
     """acc [..., R, C] f32, q [..., R, C] int8, scales [..., R, 1] f32 ->
     ``acc + float(q) * scales`` [..., R, C] f32, in a new tensor."""
-    if q.device.type == "cpu":
+    if not _on_card("bucket_acc", q):
         return bucket_acc_plain(acc, q, scales)
-    if q.device.type != "cuda":
-        raise ValueError(f"bucket_acc runs on cuda or cpu, not {q.device}")
     _check(acc, q, scales)
-    if not (acc.is_contiguous() and q.is_contiguous()
-            and scales.is_contiguous()):
-        raise ValueError("bucket_acc needs contiguous acc, q and scales")
-    c = q.shape[-1]
-    m = q.numel() // c if c else 0
-    out = torch.empty_like(acc)
-    lib = _build.load("bucket_ring")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.bucket_acc(acc.data_ptr(), q.data_ptr(), scales.data_ptr(),
-                              out.data_ptr(), m, c, stream)
-    _build.check("bucket_ring", code)
-    bucket_acc.launches += 1
+    out = torch.empty(acc.shape, dtype=acc.dtype, device=acc.device)
+    if q.numel():
+        _launch(acc, q, scales, out, 1, 0)
     return out
 
 
 bucket_acc.launches = 0
+
+
+def _check_hop(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+               hop: int) -> None:
+    _check(acc, q, scales)
+    if q.dim() < 3 or not 0 <= hop < q.shape[0]:
+        raise ValueError(f"a hop of the ring over q [W, ..., R, C] needs "
+                         f"0 <= hop < W: hop {hop}, q {tuple(q.shape)}")
+
+
+def bucket_acc_hop_plain_(acc: torch.Tensor, q: torch.Tensor,
+                          scales: torch.Tensor, hop: int) -> torch.Tensor:
+    """The kernel's hop in plain PyTorch: roll the payload ``hop`` workers
+    on, decode, then add into ``acc`` (into 0.0 at hop 0)."""
+    _check_hop(acc, q, scales, hop)
+    p = torch.roll(q, hop, 0).to(torch.float32) * torch.roll(scales, hop, 0)
+    if hop == 0:
+        acc.zero_()
+    return acc.add_(p)
+
+
+def bucket_acc_hop_(acc: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                    hop: int) -> torch.Tensor:
+    """Hop ``hop`` of the ring over a ``[W, B, R, C]`` stack, in place:
+    ``acc[w] += float(q[(w - hop) % W]) * scales[(w - hop) % W]`` for every
+    worker w, and returns ``acc``.  At hop 0 it overwrites ``acc`` with the
+    start of the sum, ``0.0 + float(q[w]) * scales[w]``, whatever ``acc``
+    held.  acc f32, q int8 and scales [W, B, R, 1] f32, all contiguous."""
+    hop = int(hop)
+    if not _on_card("bucket_acc_hop_", q):
+        return bucket_acc_hop_plain_(acc, q, scales, hop)
+    _check_hop(acc, q, scales, hop)
+    if q.numel():
+        _launch(None if hop == 0 else acc, q, scales, acc, q.shape[0], hop)
+    return acc
 
 
 def _check_stack(q: torch.Tensor, scales: torch.Tensor) -> None:

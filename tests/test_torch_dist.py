@@ -216,6 +216,68 @@ def test_bucket_acc_takes_leading_axes():
             q[w]), torch.from_numpy(sc[w])))
 
 
+@pytest.mark.parametrize("hop", range(W))
+@pytest.mark.parametrize("b,r,c", [(3, 8, 64), (2, 33, 5)])
+def test_bucket_acc_hop_plain_matches_reference(b, r, c, hop):
+    """Hop ``hop`` of the ring in place equals the reference's fold of the
+    rolled payload; at hop 0 it starts from 0.0 whatever ``acc`` held."""
+    q, sc = _payload(10 * hop + r + c, W, b, r, c)
+    acc = np.random.default_rng(hop).standard_normal((W, b, r, c)).astype(
+        np.float32)
+    ref = jbk.bucket_acc_ref(np.zeros_like(acc) if hop == 0 else acc,
+                             jnp.roll(q, hop, 0), jnp.roll(sc, hop, 0))
+    tacc = torch.full(acc.shape, float("nan")) if hop == 0 \
+        else torch.from_numpy(acc.copy())
+    ptr, before = tacc.data_ptr(), tbk.bucket_acc.launches
+    out = tbk.bucket_acc_hop_(tacc, torch.from_numpy(q), torch.from_numpy(sc),
+                              hop)
+    assert tbk.bucket_acc.launches == before      # the plain version ran
+    assert out is tacc and out.data_ptr() == ptr
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_bucket_acc_hop_rules():
+    q, sc = _payload(1, W, 2, 8, 16)
+    tq, tsc = torch.from_numpy(q), torch.from_numpy(sc)
+    for hop in (-1, W):
+        with pytest.raises(ValueError, match="0 <= hop < W"):
+            tbk.bucket_acc_hop_(torch.zeros(tq.shape), tq, tsc, hop)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tbk.bucket_acc_hop_(torch.zeros(tq.shape, device="meta"),
+                            tq.to("meta"), tsc.to("meta"), 0)
+
+
+def test_pipelined_ring_hops_in_place_without_rolls(monkeypatch):
+    """The pipelined ring of the row-scale payload makes one accumulator and
+    W in-place hops 0 .. W-1 on the untouched payload, with no roll."""
+    codec = tdist.DistConfig(**WIRE).wire_codec(64)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((W, 2, 8, 64)).astype(
+        np.float32))
+    u = torch.from_numpy(rng.random((W, 2, 8, 64), dtype=np.float32))
+    enc = tb.encode_buckets(codec, x, u)
+    calls = []
+    real = tdist.bucket_acc_hop_
+
+    def hop_(acc, q, scales, hop):
+        calls.append((acc.data_ptr(), q is enc["levels"],
+                      scales is enc["scales"], hop))
+        return real(acc, q, scales, hop)
+
+    def no_roll(_):
+        raise AssertionError("the pipelined ring rolled its payload")
+
+    monkeypatch.setattr(tdist, "bucket_acc_hop_", hop_)
+    monkeypatch.setattr(tdist, "_roll", no_roll)
+    out = tdist.bucket_ring_reduce(codec, enc, W)
+    assert [c[3] for c in calls] == list(range(W))
+    assert all(c[1] and c[2] for c in calls)
+    assert {c[0] for c in calls} == {out.data_ptr()}
+    monkeypatch.undo()
+    assert torch.equal(out, tdist.bucket_ring_reduce_sequential(codec, enc,
+                                                                W))
+
+
 @pytest.mark.parametrize("n,b,r,c", [(5, 4, 8, 16), (8, 16, 49, 64),
                                      (3, 2, 33, 1)])
 def test_bucket_ring_sum_plain_matches_chain_and_reference(n, b, r, c):

@@ -9,8 +9,9 @@ JAX nor the JAX package, so they also run where only the port is installed:
 Tolerances: int8 levels may differ on fewer than 1e-4 of the entries, each
 by at most 1 (the kernel reduces the norm in another order); scales to
 rtol 1e-6; h_new to rtol 1e-5, atol 1e-6 where the levels agree; ring_sum,
-bucket_acc and bucket_ring_sum bit for bit (the same multiply-then-add, in
-worker order), and so the pipelined mesh ring equals the sequential one;
+bucket_acc, every in-place hop of bucket_acc_hop_ and bucket_ring_sum bit
+for bit (the same multiply-then-add, in worker order), and so the pipelined
+mesh ring equals the sequential one;
 squant_decode and dequant_apply bit for bit, in f32 and in bf16 (the same
 operations, each rounded to the output type).
 """
@@ -129,6 +130,26 @@ def test_bucket_acc_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 16, 49, 64),     # 16 levels a thread
+                                   (5, 3, 45, 1),       # one a thread
+                                   (4, 2, 7, 5)])
+def test_bucket_acc_hop_kernel_matches_plain(cuda_device, shape):
+    """Every hop of the ring, in place, equals the plain rolled hop; hop 0
+    does not read the accumulator (NaN there would show)."""
+    q, sc = _payload(shape, 2 * sum(shape), cuda_device)
+    acc = torch.full(shape, float("nan"), device=cuda_device)
+    ref = acc.clone()
+    for hop in range(shape[0]):
+        before, ptr = tbr.bucket_acc.launches, acc.data_ptr()
+        out = tbr.bucket_acc_hop_(acc, q, sc, hop)
+        torch.cuda.synchronize()
+        assert tbr.bucket_acc.launches == before + 1
+        assert out is acc and acc.data_ptr() == ptr
+        tbr.bucket_acc_hop_plain_(ref, q, sc, hop)
+        assert torch.equal(acc, ref), hop
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,b,r,c", [(8, 16, 49, 64), (5, 3, 45, 1)])
 def test_bucket_ring_sum_kernel_matches_chain(cuda_device, n, b, r, c):
     q, sc = _payload((n, b, r, c), n + r, cuda_device)
@@ -207,6 +228,25 @@ def test_squant_decode_and_apply_kernels_match_plain(cuda_device, shape,
     assert out.dtype == dtype and new.dtype == dtype
     assert torch.equal(out, tsq.squant_decode_plain(q, sc, dtype=dtype))
     assert torch.equal(new, tsq.dequant_apply_plain(w, q, sc, 0.01))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,block", [((6, 10), (3, 5)),
+                                         ((256, 24), (256, 8)),
+                                         ((512, 48), (256, 16))])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_squant_decode_kernel_on_other_blocks(cuda_device, shape, block,
+                                              dtype):
+    """Blocks whose width is not a multiple of 16 take one element a
+    thread, (256, 16) the 16-element chunks; both bit for bit."""
+    x, _, u = _rand(shape, 5 * sum(shape), cuda_device)
+    q, sc = tsq.squant_encode(x, u, s=3, block=block)
+    before = tsq.squant_decode.launches
+    out = tsq.squant_decode(q, sc, block=block, dtype=dtype)
+    torch.cuda.synchronize()
+    assert tsq.squant_decode.launches == before + 1
+    assert torch.equal(out, tsq.squant_decode_plain(q, sc, block=block,
+                                                    dtype=dtype))
 
 
 @pytest.mark.cuda
