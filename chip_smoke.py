@@ -9,7 +9,10 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
 2. build: every kernel of the path from ``src/repro_torch/csrc`` with nvcc,
    one process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and at one large probe, with device times; the
+   the main path's shapes and at one large probe, with device times
+   (``ring_sum`` on the round's own strided [N, M, d] view of its [M, N, d]
+   levels and on a contiguous copy, bit for bit; every fused_memory_update,
+   ring_sum and bucket_ring_sum case launched twice for the same bits); the
    ring's in-place hop (``bucket_acc_hop_``) at the mesh and wide stacks,
    hops 0 and 1;
 4. slice: the paper's experiments exp1 to exp4 through ``run_sweep`` with
@@ -39,6 +42,7 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
    ToyMLP(12, 1024) weight as the API packs it) and at a [16384, 4096]
    probe, with device times, bounds and one-call library times; decode
    also on (256, 8) blocks, which take one element a thread;
+   fused_memory_update also on one tile, [256, 256];
 10. ops: the compression API (``repro_torch.kernels.ops``) on ToyMLP(12,
    1024): ``tree_compress`` of a gradient tree (finite, shapes, signs),
    ``tree_memory_update`` twice (h_new = h + alpha * delta_hat), then 10
@@ -72,10 +76,12 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 
 # main-path shapes: the fig4-sized grid lays B = 128 cells of N = 20 workers
-# on the rows of the fused uplink, and M = 128 cells on the ring sum
+# on the rows of the fused uplink, and M = 128 cells on the ring sum, which
+# the round hands its [M, N, d] levels as the strided view [N, M, d]
 B, N = 128, 20
 FUSED_CASES = [(B * N, 2), (B * N, 20), (B * N, 40), (20, 2**20)]
-RING_CASES = [(N, B, 40), (N, 1, 2**20)]
+RING_CASES = [(N, B, 40, "strided"), (N, B, 40, "contiguous"),
+              (N, 1, 2**20, "contiguous")]
 MAIN_FUSED, MAIN_RING = (B * N, 40), (N, B, 40)
 # the grid's 8 step sizes (multiples of the reference's 0.5/L) x 16 seeds
 GRID_MULTS = [2.0 ** (-0.5 * i) for i in range(8)]
@@ -99,6 +105,8 @@ MESH_STEPS, WIDE_STEPS = 20, 10
 OPS_BLOCK = (256, 256)
 OPS_CASES = [(4096, 256), (16384, 4096)]
 MAIN_OPS = OPS_CASES[0]
+# B1 on the API's tiles also at one tile, as a one-tile leaf (a bias) has it
+FUSED_TILE_CASES = [(256, 256)] + OPS_CASES
 OPS_STEPS, OPS_S, OPS_LR, OPS_ALPHA = 10, 1, 0.01, 0.5
 
 
@@ -231,6 +239,9 @@ def fused_case(dev, rows, d, seed):
     torch.cuda.synchronize()
     check(fused_memory_update.launches == before + 1,
           "fused_memory_update did not count its launch")
+    check(_same_bits((q, sc, hn), fused_memory_update(g, h, u, alpha, s=s,
+                                                       block=(1, d))),
+          f"fused [{rows},{d}]: a second launch gave other bits")
     qp, scp, hnp = fused_memory_update_plain(g, h, u, alpha, s=s,
                                              block=(1, d))
     diff = (q.to(torch.int32) - qp.to(torch.int32)).abs()
@@ -257,28 +268,47 @@ def fused_case(dev, rows, d, seed):
                 bound_ms=b_ms, bound_by=b_by, **times)
 
 
-def ring_case(dev, n, m, c, seed):
+def _same_bits(a, b):
+    """Whether two launches' outputs (tensors or tuples of them) are
+    identical."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def ring_case(dev, n, m, c, layout, seed):
+    """``layout`` "strided": q and scales made as [M, N, ...] and passed as
+    their [N, M, ...] transposes, as the Artemis round passes them."""
     import torch
     from repro_torch.kernels.ring_sum import ring_sum, ring_sum_plain
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randint(-2, 3, (n, m, c), generator=gen, device=dev,
-                      dtype=torch.int8)
-    scales = torch.rand(n, m, 1, generator=gen, device=dev)
+    if layout == "strided":
+        q = torch.randint(-2, 3, (m, n, c), generator=gen, device=dev,
+                          dtype=torch.int8).transpose(0, 1)
+        scales = torch.rand(m, n, 1, generator=gen, device=dev).transpose(0, 1)
+    else:
+        q = torch.randint(-2, 3, (n, m, c), generator=gen, device=dev,
+                          dtype=torch.int8)
+        scales = torch.rand(n, m, 1, generator=gen, device=dev)
     before = ring_sum.launches
     out = ring_sum(q, scales)
     torch.cuda.synchronize()
     check(ring_sum.launches == before + 1, "ring_sum did not count its launch")
     ref = ring_sum_plain(q, scales)
     err = float((out - ref).abs().max())
-    check(torch.allclose(out, ref, rtol=1e-6, atol=0),
-          f"ring_sum [{n},{m},{c}]: differs by {err}")
+    name = f"ring_sum [{n},{m},{c}] {layout}"
+    check(torch.equal(out, ref), f"{name}: differs from its plain version "
+                                 f"by {err}")
+    check(_same_bits(out, ring_sum(q, scales)),
+          f"{name}: a second launch gave other bits")
     times = timings(lambda: ring_sum(q, scales),
                     lambda: ring_sum_plain(q, scales))
     # reads N*M*C int8 levels and N*M scales, writes M*C floats; a multiply
     # and an add per level
     b_ms, b_by = bound(n * m * c + 4 * n * m + 4 * m * c, 2 * n * m * c)
-    return dict(shape=[n, m, c], max_abs_err=err, bound_ms=b_ms,
-                bound_by=b_by, **times)
+    return dict(shape=[n, m, c], layout=layout, max_abs_err=err,
+                bound_ms=b_ms, bound_by=b_by, **times)
 
 
 def _payload(dev, shape, seed):
@@ -381,6 +411,8 @@ def bsum_case(dev, shape, seed):
     err = float((out - ref).abs().max())
     check(torch.equal(out, ref), f"bucket_ring_sum {list(shape)}: differs "
                                  f"from its plain version by {err}")
+    check(_same_bits(out, bucket_ring_sum(q, scales)),
+          f"bucket_ring_sum {list(shape)}: a second launch gave other bits")
     chain = torch.zeros(shape[1:], device=dev)
     for i in range(shape[0]):
         chain = bucket_acc(chain, q[i], scales[i])
@@ -421,11 +453,12 @@ def _us(ms):
 
 def kernel_phase(dev):
     fused = [fused_case(dev, r, d, i) for i, (r, d) in enumerate(FUSED_CASES)]
-    ring = [ring_case(dev, n, m, c, 10 + i)
-            for i, (n, m, c) in enumerate(RING_CASES)]
+    ring = [ring_case(dev, n, m, c, layout, 10 + i)
+            for i, (n, m, c, layout) in enumerate(RING_CASES)]
     for name, cases in (("fused_memory_update", fused), ("ring_sum", ring)):
         for cs in cases:
-            log(f"kernel {name} {cs['shape']}: device {_us(cs['ms'])} "
+            layout = f" {cs['layout']}" if "layout" in cs else ""
+            log(f"kernel {name} {cs['shape']}{layout}: device {_us(cs['ms'])} "
                 f"(plain {_us(cs['plain_ms'])}), per call "
                 f"{_us(cs['call_ms'])} (plain {_us(cs['plain_call_ms'])}), "
                 f"bound {_us(cs['bound_ms'])} by {cs['bound_by']}, "
@@ -849,6 +882,9 @@ def fused_tile_case(dev, shape, seed):
     torch.cuda.synchronize()
     check(fused_memory_update.launches == before + 1,
           "fused_memory_update did not count its launch")
+    check(_same_bits((q, sc, hn), fused_memory_update(*args, **kw)),
+          f"fused_memory_update {list(shape)}: a second launch gave other "
+          f"bits")
     qp, scp, hnp = fused_memory_update_plain(*args, **kw)
     diff = (q.to(torch.int32) - qp.to(torch.int32)).abs()
     mismatch = float((diff != 0).float().mean())
@@ -884,7 +920,7 @@ def ops_kernel_phase(dev):
     app = [apply_case(dev, sh, dt, 60 + i)
            for i, sh in enumerate(OPS_CASES) for dt in (f32, bf16)]
     fused = [fused_tile_case(dev, sh, 70 + i)
-             for i, sh in enumerate(OPS_CASES)]
+             for i, sh in enumerate(FUSED_TILE_CASES)]
     for name, cases in (("squant_encode", enc), ("squant_decode", dec),
                         ("dequant_apply", app),
                         ("fused_memory_update (256, 256)", fused)):
@@ -991,6 +1027,7 @@ def kernel_line(cases, launches):
     """``cases`` and ``launches`` map each kernel's name to its kernel-phase
     cases and to its launches on its path's run."""
     def entry(name, source, replaces, main_shape):
+        # the first case of the main shape: for ring_sum the round's layout
         main = next(c for c in cases[name] if c["shape"] == list(main_shape))
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],

@@ -25,39 +25,29 @@
 // 16-byte aligned, a thread takes a chunk of 16 consecutive levels of one
 // row: one 16-byte load of q and one scale.  A warp's 32 chunks are 512
 // consecutive values of the accumulator; the warp trades its levels and
-// scales through shared memory, and each thread makes four float4 loads of in
-// and four float4 stores of out, each of them 512 contiguous bytes across the
-// warp, all loads issued before the first store (out may alias in).  Any
+// scales through shared memory (warp_trade.cuh, shared with ring_sum.cu),
+// and each thread makes four float4 loads of in and four float4 stores of
+// out, each of them 512 contiguous bytes across the warp, all loads issued
+// before the first store (out may alias in).  Any
 // other shape (C = 1, C = 5, ...) takes one element a thread in the same
 // kernel.  A grid-stride loop over the chunks of the whole [W, S] stack,
 // sized to a few waves of the card's SMs.
 //
-// Rounding: __fmul_rn then __fadd_rn, so nvcc cannot contract the expression
-// into an FMA.  Only then does the ring of these hops equal the decode-then-add
-// ring (acc + (float(q) * scale), two roundings) bit for bit: the reference's
-// invariant (DESIGN.md §7).
+// Rounding: fold (warp_trade.cuh) is __fmul_rn then __fadd_rn, so nvcc
+// cannot contract the expression into an FMA.  Only then does the ring of
+// these hops equal the decode-then-add ring (acc + (float(q) * scale), two
+// roundings) bit for bit: the reference's invariant (DESIGN.md §7).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "grid.cuh"
+#include "warp_trade.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWaves = 4;           // grid.cuh: at most 4 waves of blocks
-constexpr int kVec = 16;            // levels a thread takes on the vector path
-
-__device__ __forceinline__ float fold(float a, int8_t q, float sc) {
-  return __fadd_rn(a, __fmul_rn((float)q, sc));
-}
-
-// a + float(the 4 levels packed in word) * sc, elementwise
-__device__ __forceinline__ float4 fold4(float4 a, int word, float sc) {
-  return make_float4(fold(a.x, (int8_t)word, sc),
-                     fold(a.y, (int8_t)(word >> 8), sc),
-                     fold(a.z, (int8_t)(word >> 16), sc),
-                     fold(a.w, (int8_t)(word >> 24), sc));
-}
+constexpr int kVec = kChunk;        // levels a thread takes on the vector path
 
 // kE = 16: the vector path; kE = 1: one element a thread
 template <int kE>
@@ -90,27 +80,19 @@ __global__ void bucket_acc_hop_kernel(const float* in,
     if constexpr (kE == 1) {
       if (live) out[k] = fold(in ? in[k] : 0.f, q[qi], sc);
     } else if (k0 + 32 <= total) {
-      // The warp's 32 chunks are 512 consecutive accumulator values.  Each
-      // lane loads its chunk's 16 levels and scale, and the warp trades them
-      // through shared memory, so that every float4 load and store of the
-      // warp covers 512 contiguous bytes (a lane's own 64 bytes would put
-      // each store of the warp on 16 cache lines, a quarter of each).
-      levels[threadIdx.x] = *reinterpret_cast<const int4*>(q + qi);
-      row_scale[threadIdx.x] = sc;
-      __syncwarp();
-      const int* words = reinterpret_cast<const int*>(levels + warp0);
+      // The warp's 32 chunks are 512 consecutive accumulator values: the
+      // warp trades its levels and scales (warp_trade.cuh) so that every
+      // float4 load and store of the warp covers 512 contiguous bytes.
+      const int4 lv = *reinterpret_cast<const int4*>(q + qi);
       float4 a[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        a[v] = in ? reinterpret_cast<const float4*>(in + k0 * kE)[v * 32 +
+                                                                 lane]
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
       int word[4];
       float s4[4];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        const int j = v * 32 + lane;               // the warp's j-th float4
-        word[v] = words[j];
-        s4[v] = row_scale[warp0 + j / 4];
-        a[v] = in ? reinterpret_cast<const float4*>(in + k0 * kE)[j]
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      __syncwarp();
+      trade16(lv, sc, levels + warp0, row_scale + warp0, lane, word, s4);
 #pragma unroll
       for (int v = 0; v < 4; ++v)
         reinterpret_cast<float4*>(out + k0 * kE)[v * 32 + lane] =

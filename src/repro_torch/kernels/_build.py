@@ -8,8 +8,9 @@ Each ``csrc/<name>.cu`` compiles on its own with
 into a shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds).  ``<hash>`` covers the source, every file under
 ``csrc/`` that is not a kernel source (``*.cu``), and the flags: headers
-shared between kernels (``block_sum.cuh``, ``grid.cuh``) count for every
-library, so an edited source or header is never served a stale library.
+shared between kernels (``block_sum.cuh``, ``grid.cuh``, ``tile_norm.cuh``,
+``warp_trade.cuh``) count for every library, so an edited source or header
+is never served a stale library.
 ptxas's register and spill report goes to ``lib<name>-<hash>.log`` beside
 it.
 

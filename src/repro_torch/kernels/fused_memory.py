@@ -16,8 +16,12 @@ scale is that worker's L2 norm over s.  The compression API
 
 Bound on an H100 SXM: bytes.  Per element it reads g, h, u (12 B) and writes
 q and h_new (5 B), plus one 4 B scale per tile, at 3.35 TB/s.  The kernel
-keeps delta and q in registers and makes its second pass over a tile from
-cache; see the source for its layout and what it leaves for later.
+picks one of three regimes from the tile's size, one launch each: tiles of
+at most 1024 elements (the round's rows) go to a group of 4 to 32 lanes
+with the norm reduced by shuffles; larger tiles are split across a
+thread-block cluster that sums the norm through distributed shared memory
+(``csrc/tile_norm.cuh``), holding its share in registers ((256, 256)
+tiles) or streaming it twice (rows of 2^20).  See the source.
 
 ``fused_memory_update`` launches the kernel for CUDA tensors (or raises) and
 takes ``fused_memory_update_plain`` only for CPU tensors.
@@ -75,8 +79,9 @@ def fused_memory_update(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     m, n = g.shape
-    if (m // bm) * (n // bn) >= 2**31:
-        raise ValueError(f"{(m // bm) * (n // bn)} tiles exceed one grid")
+    if (m // bm) * (n // bn) >= 2**31 or bm * bn >= 2**31:
+        raise ValueError(f"{(m // bm) * (n // bn)} tiles of {bm * bn} "
+                         f"elements exceed the kernel's 31-bit indices")
     q = torch.empty((m, n), dtype=torch.int8, device=g.device)
     scales = torch.empty((m // bm, n // bn), dtype=torch.float32,
                          device=g.device)

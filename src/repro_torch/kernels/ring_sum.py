@@ -6,8 +6,11 @@ scales [N, M, 1] f32 it returns ``sum_i q[i] * scales[i]`` as [M, C] f32,
 summed in worker order with one write per output element.
 
 Bound on an H100 SXM: bytes.  It reads N*M*C int8 levels and N*M f32 scales
-and writes M*C f32, at 3.35 TB/s.  One thread per output element keeps the
-running sum in a register; no partial sum reaches device memory.
+and writes M*C f32, at 3.35 TB/s.  No partial sum reaches device memory,
+and each sum's loads are in flight at once: wide rows (C a multiple of 16,
+16-byte aligned) take 16 levels a thread with one 16-byte load per worker;
+narrow cells (the round's [20, 128, 40]) are staged whole in shared memory,
+a block a cell; anything else takes one thread an output.  See the source.
 
 Strides: the wrapper passes the strides of q's and scales' first two axes to
 the kernel, so the Artemis round hands it its [M cells, N workers] layout

@@ -20,9 +20,16 @@ from repro_torch.kernels import fused_memory as tfm
 from repro_torch.kernels import ring_sum as trs
 
 # (shape, block): the Artemis round's single-row tiles for d = 2, 20, 40
-# (d = 40 with a ragged NaN-free tail), and the reference's 2-D tiles
+# (d = 40 with a ragged NaN-free tail), and the reference's 2-D tiles; then
+# the edges of the CUDA kernel's regimes: rows of d = 1, 31, 32, 33 and 1024
+# (a group of 4 to 32 lanes, up to 32 elements a lane), d = 4096 (a tile
+# split across a cluster), and (256, 256) tiles on one tile and on 6
 FUSED_CASES = [((8, 2), (1, 2)), ((8, 20), (1, 20)), ((8, 40), (1, 40)),
-               ((256, 512), (256, 256))]
+               ((256, 512), (256, 256)),
+               ((4, 1), (1, 1)), ((4, 31), (1, 31)), ((4, 32), (1, 32)),
+               ((4, 33), (1, 33)), ((4, 1024), (1, 1024)),
+               ((4, 4096), (1, 4096)), ((256, 256), (256, 256)),
+               ((768, 512), (256, 256))]
 
 
 def _inputs(shape, seed):
@@ -86,6 +93,34 @@ def test_fused_memory_nonfinite_row(bad):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("bad", ["nan", "inf"])
+@pytest.mark.parametrize("shape,block,row", [
+    ((4, 40), (1, 40), 2),                  # a group of lanes a tile
+    ((512, 256), (256, 256), 1),            # a tile in a cluster's registers
+    ((3, 2**17), (1, 2**17), 1)])           # a tile streamed by a cluster
+def test_fused_memory_nonfinite_tile(shape, block, row, bad):
+    """At the size of each regime of the CUDA kernel: a tile holding a
+    non-finite entry ships a 0 scale, level 0 there and h_new == h; the
+    other tiles agree with the Pallas kernel."""
+    g, h, u = _inputs(shape, seed=11)
+    bm, bn = block
+    g[row * bm + bm - 1, bn - 1] = np.nan if bad == "nan" else np.inf
+    q, sc, hn = (x.numpy() for x in tfm.fused_memory_update(
+        torch.from_numpy(g), torch.from_numpy(h), torch.from_numpy(u), 0.5,
+        s=2, block=block))
+    qr, scr, hnr = (np.asarray(x) for x in jfm.fused_memory_update(
+        jnp.asarray(g), jnp.asarray(h), jnp.asarray(u), 0.5, s=2,
+        block=block, interpret=True))
+    tile = slice(row * bm, (row + 1) * bm)
+    assert sc[row, 0] == 0.0 == scr[row, 0]
+    assert np.array_equal(hn[tile], h[tile])
+    assert q[row * bm + bm - 1, bn - 1] == 0
+    keep = np.ones(shape[0], bool)
+    keep[tile] = False
+    assert_fused_close((q[keep], np.delete(sc, row, 0), hn[keep]),
+                       (qr[keep], np.delete(scr, row, 0), hnr[keep]))
+
+
 def test_fused_memory_rejects_bad_input():
     g, h, u = (torch.from_numpy(x) for x in _inputs((4, 6), seed=1))
     with pytest.raises(ValueError):
@@ -96,28 +131,61 @@ def test_fused_memory_rejects_bad_input():
         tfm.fused_memory_update(g.double(), h, u, 0.5, s=1, block=(1, 6))
 
 
-# (N, M, C, block): the round's M=1, C=d aggregate and a multi-row case
+# (N, M, C, block): the round's M=1, C=d aggregate and a multi-row case;
+# then the edges of the CUDA kernel's paths: N = 1, 8, 20 and 33 workers
+# (one batch of 8 loads and more), C = 16 and 256 (16 levels a thread) and
+# C = 17 (cells staged in shared memory)
 RING_CASES = [(10, 1, 40, (1, 40)), (5, 1, 2, (1, 2)),
-              (4, 8, 256, (8, 256))]
+              (4, 8, 256, (8, 256))] + [
+    (n, 3, c, (3, c)) for n in (1, 8, 20, 33) for c in (16, 17, 256)]
 
 
-@pytest.mark.parametrize("n,m,c,block", RING_CASES)
-def test_ring_sum_plain_matches_pallas(n, m, c, block):
-    """Bit for bit against the reference's oracle ``ring_sum_ref`` (the same
-    multiply-then-add in worker order); against the interpreted Pallas
-    kernel, whose XLA lowering fuses each multiply-add into one FMA, to
-    rtol 1e-6 with an atol of 1e-6 for sums that cancel to near 0."""
+def _ring_inputs(n, m, c):
     rng = np.random.default_rng(n * m + c)
     q = rng.integers(-3, 4, (n, m, c)).astype(np.int8)
     scales = rng.random((n, m, 1), dtype=np.float32)
     scales[0] = 0.0                      # a masked (inactive) worker
+    return q, scales
+
+
+def _assert_ring_matches(out, q, scales, block):
     ref = jrs.ring_sum(jnp.asarray(q), jnp.asarray(scales), block=block,
                        interpret=True)
-    oracle = jrs.ring_sum_ref(jnp.asarray(q), jnp.asarray(scales))
-    out = trs.ring_sum(torch.from_numpy(q), torch.from_numpy(scales))
-    assert np.array_equal(out.numpy(), np.asarray(oracle))
+    oracle = np.asarray(jrs.ring_sum_ref(jnp.asarray(q), jnp.asarray(scales)))
+    in_order = np.zeros(q.shape[1:], np.float32)
+    for i in range(q.shape[0]):          # f32, each operation rounded
+        in_order = in_order + q[i].astype(np.float32) * scales[i]
+    assert np.array_equal(out.numpy(), in_order)
+    if q.shape[0] <= 32:
+        # XLA's CPU reduce adds up to 32 terms in order; beyond that it
+        # reassociates, and the oracle is held to the Pallas tolerance
+        assert np.array_equal(out.numpy(), oracle)
+    np.testing.assert_allclose(out.numpy(), oracle, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("n,m,c,block", RING_CASES)
+def test_ring_sum_plain_matches_pallas(n, m, c, block):
+    """Bit for bit against a numpy loop in worker order and, up to 32
+    workers, against the reference's oracle ``ring_sum_ref`` (the same
+    multiply-then-add in worker order); against the interpreted Pallas
+    kernel, whose XLA lowering fuses each multiply-add into one FMA, to
+    rtol 1e-6 with an atol of 1e-6 for sums that cancel to near 0."""
+    q, scales = _ring_inputs(n, m, c)
+    out = trs.ring_sum(torch.from_numpy(q), torch.from_numpy(scales))
+    _assert_ring_matches(out, q, scales, block)
+
+
+@pytest.mark.parametrize("n,m,c,block", RING_CASES)
+def test_ring_sum_plain_matches_pallas_strided(n, m, c, block):
+    """The same, with q and scales handed over as the Artemis round does:
+    [N, M] views of [M, N] tensors, the worker axis strided."""
+    q, scales = _ring_inputs(n, m, c)
+    qt = torch.from_numpy(np.ascontiguousarray(q.transpose(1, 0, 2)))
+    st = torch.from_numpy(np.ascontiguousarray(scales.transpose(1, 0, 2)))
+    out = trs.ring_sum(qt.transpose(0, 1), st.transpose(0, 1))
+    _assert_ring_matches(out, q, scales, block)
 
 
 def test_ring_sum_takes_strided_worker_axis():

@@ -8,7 +8,8 @@ JAX nor the JAX package, so they also run where only the port is installed:
 
 Tolerances: int8 levels may differ on fewer than 1e-4 of the entries, each
 by at most 1 (the kernel reduces the norm in another order); scales to
-rtol 1e-6; h_new to rtol 1e-5, atol 1e-6 where the levels agree; ring_sum,
+rtol 1e-6; h_new to rtol 1e-5, atol 1e-6 where the levels agree; a second
+launch of fused_memory_update or ring_sum gives the same bits; ring_sum,
 bucket_acc, every in-place hop of bucket_acc_hop_ and bucket_ring_sum bit
 for bit (the same multiply-then-add, in worker order), and so the pipelined
 mesh ring equals the sequential one;
@@ -42,49 +43,124 @@ def _rand(shape, seed, dev):
             torch.rand(shape, generator=gen, device=dev))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", [(2560, 2), (2560, 40), (20, 4096)])
-def test_fused_memory_kernel_matches_plain(cuda_device, rows, d):
-    g, h, u = _rand((rows, d), rows + d, cuda_device)
-    before = tfm.fused_memory_update.launches
-    q, sc, hn = tfm.fused_memory_update(g, h, u, 0.25, s=2, block=(1, d))
-    torch.cuda.synchronize()
-    assert tfm.fused_memory_update.launches == before + 1
-    qr, scr, hnr = tfm.fused_memory_update_plain(g, h, u, 0.25, s=2,
-                                                 block=(1, d))
+# [4096, 256]: one ToyMLP(12, 1024) weight as the ops API packs it;
+# [1024, 2048]: a probe of 32 tiles in two tile columns
+OPS_SHAPES = [(4096, 256), (1024, 2048)]
+BF16 = torch.bfloat16
+
+
+def assert_levels_close(q, qr):
     diff = (q.int() - qr.int()).abs()
     assert float((diff != 0).float().mean()) < 1e-4
     assert int(diff.max()) <= 1
+    return diff == 0
+
+
+def _fused_agrees(g, h, u, block, alpha=0.25, s=2):
+    """One launch of B1 against its plain version at today's tolerances, and
+    a second launch giving the same bits."""
+    before = tfm.fused_memory_update.launches
+    q, sc, hn = tfm.fused_memory_update(g, h, u, alpha, s=s, block=block)
+    torch.cuda.synchronize()
+    assert tfm.fused_memory_update.launches == before + 1
+    qr, scr, hnr = tfm.fused_memory_update_plain(g, h, u, alpha, s=s,
+                                                 block=block)
+    agree = assert_levels_close(q, qr)
     torch.testing.assert_close(sc, scr, rtol=1e-6, atol=0)
-    agree = diff == 0
     torch.testing.assert_close(hn[agree], hnr[agree], rtol=1e-5, atol=1e-6)
+    again = tfm.fused_memory_update(g, h, u, alpha, s=s, block=block)
+    for x, y in zip((q, sc, hn), again):
+        assert torch.equal(x, y)
+
+
+# rows of d: 2 and 40 (the round), 1, 31, 32, 33 and 1024 (a group of 4 to
+# 32 lanes a tile, 1 to 32 elements a lane), 4096 and 4097 (a cluster's
+# registers, float4 and one element at a time), 2^20 (streamed by a cluster)
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(2560, 2), (2560, 40), (20, 4096),
+                                    (300, 1), (300, 31), (300, 32),
+                                    (300, 33), (300, 1024), (6, 4097),
+                                    (4, 2**20)])
+def test_fused_memory_kernel_matches_plain(cuda_device, rows, d):
+    g, h, u = _rand((rows, d), rows + d, cuda_device)
+    _fused_agrees(g, h, u, (1, d))
 
 
 @pytest.mark.cuda
-def test_fused_memory_kernel_nonfinite_row(cuda_device):
-    g, h, u = _rand((4, 20), 3, cuda_device)
-    g[1, 3] = float("nan")
-    q, sc, hn = tfm.fused_memory_update(g, h, u, 0.5, s=1, block=(1, 20))
-    assert float(sc[1, 0]) == 0.0 and int(q[1, 3]) == 0
-    assert torch.equal(hn[1], h[1])
+@pytest.mark.parametrize("shape,block", [((4, 20), (1, 20)),
+                                         ((512, 256), (256, 256)),
+                                         ((4, 2**20), (1, 2**20))])
+@pytest.mark.parametrize("bad", ["nan", "inf"])
+def test_fused_memory_kernel_nonfinite_row(cuda_device, shape, block, bad):
+    """In each of B1's three regimes: a tile with a non-finite entry ships a
+    0 scale, level 0 there and h_new == h."""
+    g, h, u = _rand(shape, 3, cuda_device)
+    bm, bn = block
+    g[bm, 3] = float(bad)                   # in the second tile
+    q, sc, hn = tfm.fused_memory_update(g, h, u, 0.5, s=1, block=block)
+    assert float(sc[1, 0]) == 0.0 and int(q[bm, 3]) == 0
+    assert torch.equal(hn[bm:2 * bm], h[bm:2 * bm])
+    keep = torch.ones(shape[0], dtype=torch.bool, device=cuda_device)
+    keep[bm:2 * bm] = False
+    qr, scr, hnr = tfm.fused_memory_update_plain(g, h, u, 0.5, s=1,
+                                                 block=block)
+    agree = assert_levels_close(q[keep], qr[keep])
+    torch.testing.assert_close(hn[keep][agree], hnr[keep][agree], rtol=1e-5,
+                               atol=1e-6)
 
 
+def _levels(shape, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randint(-3, 4, shape, generator=gen, device=dev,
+                          dtype=torch.int8),
+            torch.rand(shape[:-1] + (1,), generator=gen, device=dev))
+
+
+# N = 1, 8, 20, 33 workers x (M, C): the round's (128, 40), (3, 256) and
+# (7, 16) (cells staged in shared memory, 16 bytes a load), (5, 17)
+# (staged, byte loads), a row of 4096 (staged up to N = 8, 16 levels a
+# thread beyond), (2, 4097) (staged up to N = 8, one thread an output
+# beyond), a row of 2^20 + 16 (16 levels a thread, the last warp partial)
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m,c", [(20, 128, 40), (20, 1, 4096)])
+@pytest.mark.parametrize("n", [20, 1, 8, 33])
+@pytest.mark.parametrize("m,c", [(128, 40), (1, 4096), (3, 256), (7, 16),
+                                 (5, 17), (2, 4097), (1, 2**20 + 16)])
 def test_ring_sum_kernel_matches_plain(cuda_device, n, m, c):
-    gen = torch.Generator(device=cuda_device).manual_seed(m + c)
-    q = torch.randint(-3, 4, (n, m, c), generator=gen, device=cuda_device,
-                      dtype=torch.int8)
-    sc = torch.rand(n, m, 1, generator=gen, device=cuda_device)
+    q, sc = _levels((n, m, c), n + m + c, cuda_device)
     before = trs.ring_sum.launches
     out = trs.ring_sum(q, sc)
     torch.cuda.synchronize()
     assert trs.ring_sum.launches == before + 1
     assert torch.equal(out, trs.ring_sum_plain(q, sc))
+    assert torch.equal(trs.ring_sum(q, sc), out)            # deterministic
     # the round's transposed [M, N] layout, as a strided view
     qt, st = q.transpose(0, 1).contiguous(), sc.transpose(0, 1).contiguous()
+    out_t = trs.ring_sum(qt.transpose(0, 1), st.transpose(0, 1))
+    assert torch.equal(out_t, out)
     assert torch.equal(trs.ring_sum(qt.transpose(0, 1), st.transpose(0, 1)),
-                       out)
+                       out_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,c", [(8, 16 * 49, 64), (20, 128, 40),
+                                   (20, 1, 4096)])
+def test_ring_sum_kernels_on_misaligned_levels(cuda_device, n, m, c):
+    """q one byte into its buffer is not 16-byte aligned: ring_sum and
+    bucket_ring_sum take the byte-wise path, bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n * c)
+    buf = torch.randint(-3, 4, (n * m * c + 1,), generator=gen,
+                        device=cuda_device, dtype=torch.int8)
+    q = buf[1:].view(n, m, c)
+    sc = torch.rand(n, m, 1, generator=gen, device=cuda_device)
+    out = trs.ring_sum(q, sc)
+    assert torch.equal(out, trs.ring_sum_plain(q, sc))
+    assert torch.equal(trs.ring_sum(q, sc), out)
+    q4, sc4 = q.view(n, 1, m, c), sc.view(n, 1, m, 1)
+    before = tbr.bucket_ring_sum.launches
+    out4 = tbr.bucket_ring_sum(q4, sc4)
+    torch.cuda.synchronize()
+    assert tbr.bucket_ring_sum.launches == before + 1
+    assert torch.equal(out4, tbr.bucket_ring_sum_plain(q4, sc4))
 
 
 @pytest.mark.cuda
@@ -150,7 +226,8 @@ def test_bucket_acc_hop_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,b,r,c", [(8, 16, 49, 64), (5, 3, 45, 1)])
+@pytest.mark.parametrize("n,b,r,c", [(8, 16, 49, 64), (5, 3, 45, 1),
+                                     (8, 16, 3076, 256), (33, 2, 5, 16)])
 def test_bucket_ring_sum_kernel_matches_chain(cuda_device, n, b, r, c):
     q, sc = _payload((n, b, r, c), n + r, cuda_device)
     before = tbr.bucket_ring_sum.launches
@@ -162,6 +239,7 @@ def test_bucket_ring_sum_kernel_matches_chain(cuda_device, n, b, r, c):
         acc = tbr.bucket_acc(acc, q[i], sc[i])
     assert torch.equal(out, acc)
     assert torch.equal(out, tbr.bucket_ring_sum_plain(q, sc))
+    assert torch.equal(tbr.bucket_ring_sum(q, sc), out)     # deterministic
 
 
 @pytest.mark.cuda
@@ -179,19 +257,6 @@ def test_mesh_pipelined_equals_sequential(cuda_device):
 # the ops API's kernels: squant encode, decode, dequant_apply and B1 on
 # (256, 256) tiles
 # ---------------------------------------------------------------------------
-
-# [4096, 256]: one ToyMLP(12, 1024) weight as the ops API packs it;
-# [1024, 2048]: a probe of 32 tiles in two tile columns
-OPS_SHAPES = [(4096, 256), (1024, 2048)]
-BF16 = torch.bfloat16
-
-
-def assert_levels_close(q, qr):
-    diff = (q.int() - qr.int()).abs()
-    assert float((diff != 0).float().mean()) < 1e-4
-    assert int(diff.max()) <= 1
-    return diff == 0
-
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", OPS_SHAPES)
@@ -250,16 +315,15 @@ def test_squant_decode_kernel_on_other_blocks(cuda_device, shape, block,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", OPS_SHAPES)
-def test_fused_memory_kernel_on_2d_tiles(cuda_device, shape):
-    """B1 on the ops API's (256, 256) tiles."""
+@pytest.mark.parametrize("shape,block", [
+    (sh, (256, 256)) for sh in OPS_SHAPES + [(256, 256), (768, 512)]] + [
+    ((512, 510), (256, 255)),                 # one element a vector
+    ((64, 64), (8, 64)), ((96, 60), (32, 30))])  # 2-D tiles of lane groups
+def test_fused_memory_kernel_on_2d_tiles(cuda_device, shape, block):
+    """B1 on the ops API's (256, 256) tiles (a cluster's registers; one
+    tile, 16 and 32 of them) and on other 2-D tiles."""
     g, h, u = _rand(shape, 3 * sum(shape), cuda_device)
-    q, sc, hn = tfm.fused_memory_update(g, h, u, 0.5, s=1, block=(256, 256))
-    qr, scr, hnr = tfm.fused_memory_update_plain(g, h, u, 0.5, s=1,
-                                                 block=(256, 256))
-    agree = assert_levels_close(q, qr)
-    torch.testing.assert_close(sc, scr, rtol=1e-6, atol=0)
-    torch.testing.assert_close(hn[agree], hnr[agree], rtol=1e-5, atol=1e-6)
+    _fused_agrees(g, h, u, block, alpha=0.5, s=1)
 
 
 @pytest.mark.cuda
