@@ -21,6 +21,12 @@ Randomness enters as tensors, replacing the reference's key derivation: the
 uplink uniforms ``u_up [..., N, d]`` (one row per worker message) and the
 downlink uniforms ``u_dwn [..., d]``.
 
+Sums and means over the workers add in worker order (``worker_sum``, one
+kernel launch on the card) and a mean multiplies by float32(1 / N), as the
+reference's ``jnp.sum`` and ``jnp.mean`` do on the CPU; with the codecs'
+norms (``core/codec.py``) the dense path equals the reference bit for bit
+on the CPU.
+
 ``backend="cuda"`` routes codecs of the ``squant_rows`` family through the
 fused kernels (``kernels/fused_memory.py`` then ``kernels/ring_sum.py``) and
 the rest through the dense path, as the reference's ``"pallas"`` backend
@@ -31,12 +37,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import default_device
 from repro_torch.core import codec as wire
 from repro_torch.kernels.fused_memory import fused_memory_update
-from repro_torch.kernels.ring_sum import ring_sum
+from repro_torch.kernels.ring_sum import ring_sum, worker_sum
 
 BACKENDS = ("dense", "cuda")
 
@@ -136,7 +143,7 @@ def _uplink_dense(cfg, c_up, state, grads, u_up, active, alpha):
     # only active workers send and update their memory
     delta_hat = active * delta_hat
     new_h = state.h + alpha * delta_hat
-    return delta_hat, new_h, new_e, delta_hat.sum(-2)
+    return delta_hat, new_h, new_e, worker_sum(delta_hat)
 
 
 def _uplink_fused(cfg, c_up, state, grads, u_up, active, alpha):
@@ -168,6 +175,12 @@ def _uplink_fused(cfg, c_up, state, grads, u_up, active, alpha):
                        act_scales.reshape(m, n, 1).transpose(0, 1))
     delta_hat = q.to(grads.dtype) * act_scales
     return delta_hat, new_h, new_e, sum_hat.reshape(*lead, d)
+
+
+def _worker_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of x [..., N, d] over its N workers as ``jnp.mean`` computes it:
+    the worker-order sum times float32(1 / N)."""
+    return worker_sum(x) * float(np.float32(1.0 / x.shape[-2]))
 
 
 def artemis_round(cfg: ArtemisConfig, state: ArtemisState,
@@ -212,8 +225,8 @@ def artemis_round(cfg: ArtemisConfig, state: ArtemisState,
     elif cfg.pp_mode == "pp1":
         # server-side copies of h_i; only ACTIVE memories are read
         ghat = (sum_hat / (cfg.p * n)
-                + (active * state.h).sum(-2) / (cfg.p * n))
-        new_hbar = new_h.mean(-2)
+                + worker_sum(active * state.h) / (cfg.p * n))
+        new_hbar = _worker_mean(new_h)
     else:
         raise ValueError(f"unknown pp_mode {cfg.pp_mode!r}")
 
@@ -226,10 +239,10 @@ def artemis_round(cfg: ArtemisConfig, state: ArtemisState,
     stats = {
         "uplink_bits": n_active * c_up.bits(d),
         "dwnlink_bits": n_active * c_dwn.bits(d),
-        "compress_err_up": ((delta_hat - active * delta) ** 2).sum(-1)
-        .mean(-1),
-        "compress_err_dwn": ((omega - ghat) ** 2).sum(-1),
-        "ghat_norm": torch.sqrt((ghat * ghat).sum(-1)),
+        "compress_err_up": _worker_mean(wire.sum_squares(
+            delta_hat - active * delta, fused=False)[..., None])[..., 0],
+        "compress_err_dwn": wire.sum_squares(omega - ghat, fused=False),
+        "ghat_norm": wire.l2_norm(ghat),
         "wire_scrubbed": torch.zeros_like(n_active),
     }
     return omega, ArtemisState(new_h, new_hbar, new_e, state.step + 1), stats

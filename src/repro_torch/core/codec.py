@@ -10,7 +10,18 @@ messages.  This is what ``jax.vmap`` over the JAX codec gives, written out.
 
 Randomness: the uniforms enter as a tensor ``u`` of ``x``'s shape, or are
 drawn from a passed ``torch.Generator``.  Given the same ``u`` the levels
-agree with the JAX codec up to the order of the norm's reduction.
+agree with the JAX codec up to the order of the norm's reduction: bit for
+bit on the CPU for messages of at most 32 elements.
+
+The norm's order (``sum_squares``).  On the CPU, for messages of at most 32
+elements, the port repeats the reference's order bit for bit: XLA's CPU
+reduce of ``jnp.linalg.norm`` (squant) adds the squares left to right, each
+a fused multiply-add, and the separate square and sum of ``row_squant``
+add them left to right with a rounding each; both take a correctly rounded
+square root.  Beyond 32 elements XLA vectorises the reduce in an order not
+matched here (ROADMAP.md C2), and the port takes torch's sum.  On the card
+a norm is one reduction kernel in torch's order (one launch, not one per
+element).
 
 Both scale conventions of the reference are kept: ``squant`` ships the
 undivided norm and decodes ``(q * norm) / s``; ``row_squant`` ships
@@ -101,9 +112,53 @@ def _uniforms(x: torch.Tensor, u: Optional[torch.Tensor],
     return torch.rand(x.shape, generator=generator, device=x.device)
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    """L2 norm of each message, as the reference writes it."""
-    return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+SEQUENTIAL_NORM_MAX = 32   # longest message whose norm order is matched
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for float32 tensors with one rounding to float32, as a
+    fused multiply-add rounds it.  In float64 the product is exact and the
+    sum is rounded once; where that rounding lands on a float32 tie while the
+    exact sum does not (double rounding), the float64 sum is moved one step
+    toward the exact sum first, so the result is the FMA's in every case."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)            # s + err == p + c exactly
+    tie = (s.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
+    toward = torch.where(err > 0, torch.full_like(s, math.inf),
+                         torch.full_like(s, -math.inf))
+    s = torch.where(tie & (err != 0), torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root (torch's vectorised CPU sqrt
+    can be one ulp off; XLA's and the card's are not)."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def sum_squares(x: torch.Tensor, fused: bool) -> torch.Tensor:
+    """Sum of squares over the last axis, in the reference's order on the
+    CPU where it is known (module docstring): left to right from 0.0, each
+    step an FMA when ``fused`` (a square fused into XLA's reduce, as in
+    ``jnp.linalg.norm``) or a multiply then an add (a square computed on
+    its own, then ``jnp.sum``).  Elsewhere torch's sum, one reduction."""
+    if x.device.type != "cpu" or x.shape[-1] > SEQUENTIAL_NORM_MAX:
+        return torch.sum(x * x, dim=-1)
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32)
+    for i in range(x.shape[-1]):
+        v = x[..., i]
+        acc = fma32(v, v, acc) if fused else acc + v * v
+    return acc
+
+
+def l2_norm(x: torch.Tensor, fused: bool = True) -> torch.Tensor:
+    """L2 norm over the last axis (``sum_squares``, then a correctly rounded
+    square root on the CPU)."""
+    ss = sum_squares(x, fused)
+    return sqrt32(ss) if x.device.type == "cpu" else torch.sqrt(ss)
 
 
 def _levels_ok(q: torch.Tensor, s: int) -> torch.Tensor:
@@ -163,7 +218,7 @@ def _squant_codec(d: int, s: int = 1, **_) -> Codec:
 
     def encode(x, u=None, generator=None):
         u = _uniforms(x, u, generator)
-        norm = _norm(x)
+        norm = l2_norm(x)[..., None]     # jnp.linalg.norm
         r = torch.where(norm > 0, x.abs() / norm * s, torch.zeros_like(x))
         low = torch.floor(r)
         psi = low + (u < (r - low)).to(x.dtype)
@@ -198,7 +253,7 @@ def row_squant_encode(x: torch.Tensor, u: torch.Tensor, s: int):
     scales f32 = norm/s, keepdims).  A non-finite row ships a 0 scale so that
     its decode is exactly 0 (the clamp of ``kernels/fused_memory.py``)."""
     xf = x.to(torch.float32)
-    norm = _norm(xf)
+    norm = l2_norm(xf, fused=False)[..., None]   # square, then sum
     scale = torch.where(torch.isfinite(norm), norm / s,
                         torch.zeros_like(norm))
     safe = torch.where(norm > 0, norm, torch.ones_like(norm))

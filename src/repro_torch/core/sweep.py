@@ -37,6 +37,7 @@ from repro_torch.core import artemis as art
 from repro_torch.core.codec import FP_BITS
 from repro_torch.core.federated import Problem
 from repro_torch.core.noise import NoiseSource, TorchNoise
+from repro_torch.kernels.ring_sum import worker_sum
 
 
 @dataclasses.dataclass
@@ -53,14 +54,6 @@ class SweepResult:
     eval_iters: np.ndarray      # [E] iteration index k of each eval point
     traces: int = 0             # the port compiles nothing
     telemetry: Optional[dict] = None        # not ported yet: always None
-
-
-def _sum_in_worker_order(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, left to right, in float32."""
-    acc = x[..., 0]
-    for i in range(1, x.shape[-1]):
-        acc = acc + x[..., i]
-    return acc
 
 
 def _fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
@@ -106,7 +99,7 @@ def _run_variant(problem: Problem, cfg: art.ArtemisConfig,
         missed = k - last_part                # rounds since last download
         catch = torch.where(missed > window, m1,
                             missed.to(torch.float32) * m2)
-        catch = _sum_in_worker_order(active * catch)
+        catch = worker_sum((active * catch)[..., None])[..., 0]
         last_part = torch.where(active > 0, k, last_part)
         g = gammas / math.sqrt(k + 1.0) if gamma_decay else gammas
         w = w - g[:, None] * omega

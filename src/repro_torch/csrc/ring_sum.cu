@@ -40,6 +40,13 @@
 // Rounding: acc = acc + float(q) * scale with __fmul_rn/__fadd_rn, starting
 // from 0, so nvcc cannot contract it into an FMA and the plain PyTorch loop
 // (acc = acc + q[i].float() * s[i]) matches it bit for bit on every path.
+//
+// worker_sum: the same loop templated on its load, a float32 row value
+// instead of a level times a scale: out[m, c] = sum_i x[i, m, c] in worker
+// order from 0.0f (the Artemis round's server sums, which the reference
+// adds in worker order with jnp.sum).  It takes paths 2 and 3 (the round's
+// [20, 128, 40] is staged, a block a cell); it is not a TPU kernel of its
+// own but a helper of this one.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -126,10 +133,19 @@ __global__ void ring_sum_wide_kernel(const int8_t* __restrict__ q,
   }
 }
 
+// One worker's term folded into a sum: a level times its row scale
+// (ring_sum), or a float32 row value (worker_sum, no scales).
+__device__ __forceinline__ float add_term(float acc, int8_t q, float sc) {
+  return fold(acc, q, sc);
+}
+__device__ __forceinline__ float add_term(float acc, float x, float) {
+  return __fadd_rn(acc, x);
+}
+
 // ---------------------------------------------------------------------------
-// Path 2: cells staged in shared memory.  A cell's levels are `rows` rows of
-// `row_len` bytes, `row_stride` apart (one row when its workers' rows are
-// adjacent); they are copied V bytes a load.
+// Path 2: cells staged in shared memory.  A cell's terms are `rows` rows of
+// `row_len` bytes, `row_stride` bytes apart (one row when its workers' rows
+// are adjacent); they are copied V bytes a load.
 // ---------------------------------------------------------------------------
 
 template <int V>
@@ -149,32 +165,37 @@ __host__ __device__ __forceinline__ int round16(int x) {
   return (x + 15) & ~15;
 }
 
-template <int V>
-__global__ void ring_sum_cell_kernel(const int8_t* __restrict__ q,
+template <typename T, int V>
+__global__ void ring_sum_cell_kernel(const T* __restrict__ q,
                                      const float* __restrict__ scales,
                                      float* __restrict__ out, Layout l,
                                      int rows, int row_len,
                                      long long row_stride) {
-  using T = typename Bytes<V>::T;
+  using B = typename Bytes<V>::T;
+  constexpr bool kLevels = sizeof(T) == 1;
   extern __shared__ int4 smem[];
-  int8_t* lv = reinterpret_cast<int8_t*>(smem);
+  char* staged = reinterpret_cast<char*>(smem);
+  const T* lv = reinterpret_cast<const T*>(staged);
   const int n = l.n, c = (int)l.c;
-  float* sc = reinterpret_cast<float*>(lv + round16(n * c));
+  float* sc =
+      reinterpret_cast<float*>(staged + round16(n * c * (int)sizeof(T)));
   const long long m = blockIdx.x;
-  const int8_t* qm = q + m * l.q_sm;
+  const char* qm = reinterpret_cast<const char*>(q + m * l.q_sm);
   const int per_row = row_len / V;
-  // every load of the cell's levels and scales, then one barrier
+  // every load of the cell's terms and scales, then one barrier
   for (int t = threadIdx.x; t < rows * per_row; t += blockDim.x) {
     const int r = t / per_row, b = (t - r * per_row) * V;
-    *reinterpret_cast<T*>(lv + r * row_len + b) =
-        *reinterpret_cast<const T*>(qm + r * row_stride + b);
+    *reinterpret_cast<B*>(staged + r * row_len + b) =
+        *reinterpret_cast<const B*>(qm + r * row_stride + b);
   }
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    sc[i] = scales[m * l.s_sm + i * l.s_sn];
+  if constexpr (kLevels)
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      sc[i] = scales[m * l.s_sm + i * l.s_sn];
   __syncthreads();
   for (int ci = threadIdx.x; ci < c; ci += blockDim.x) {
     float acc = 0.f;
-    for (int i = 0; i < n; ++i) acc = fold(acc, lv[i * c + ci], sc[i]);
+    for (int i = 0; i < n; ++i)
+      acc = add_term(acc, lv[i * c + ci], kLevels ? sc[i] : 0.f);
     out[m * c + ci] = acc;
   }
 }
@@ -183,19 +204,21 @@ __global__ void ring_sum_cell_kernel(const int8_t* __restrict__ q,
 // Path 3: one thread an output.
 // ---------------------------------------------------------------------------
 
-__global__ void ring_sum_out_kernel(const int8_t* __restrict__ q,
+template <typename T>
+__global__ void ring_sum_out_kernel(const T* __restrict__ q,
                                     const float* __restrict__ scales,
                                     float* __restrict__ out, Layout l) {
+  constexpr bool kLevels = sizeof(T) == 1;
   const long long total = l.m * l.c;
   for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        t < total; t += (long long)gridDim.x * blockDim.x) {
     const long long mi = t / l.c;
-    const int8_t* qp = q + mi * l.q_sm + (t - mi * l.c);
-    const float* sp = scales + mi * l.s_sm;
+    const T* qp = q + mi * l.q_sm + (t - mi * l.c);
+    const float* sp = kLevels ? scales + mi * l.s_sm : nullptr;
     float acc = 0.f;
 #pragma unroll 8
     for (int i = 0; i < l.n; ++i)
-      acc = fold(acc, qp[i * l.q_sn], sp[i * l.s_sn]);
+      acc = add_term(acc, qp[i * l.q_sn], kLevels ? sp[i * l.s_sn] : 0.f);
     out[t] = acc;
   }
 }
@@ -211,44 +234,62 @@ int sm_count() {
   return sms > 0 ? sms : 1;
 }
 
-template <int V>
-int launch_cell(const int8_t* q, const float* scales, float* out,
-                const Layout& l, int rows, int row_len, long long row_stride,
+template <typename T, int V>
+int launch_cell(const T* q, const float* scales, float* out, const Layout& l,
+                int rows, int row_len, long long row_stride,
                 cudaStream_t stream) {
-  const int smem = round16(l.n * (int)l.c) + 4 * l.n;
-  ring_sum_cell_kernel<V><<<(unsigned int)l.m, kCellThreads, smem,
-                            stream>>>(q, scales, out, l, rows, row_len,
-                                      row_stride);
+  const int smem = round16(l.n * (int)l.c * (int)sizeof(T)) +
+                   (sizeof(T) == 1 ? 4 * l.n : 0);
+  ring_sum_cell_kernel<T, V><<<(unsigned int)l.m, kCellThreads, smem,
+                               stream>>>(q, scales, out, l, rows, row_len,
+                                         row_stride);
   return (int)cudaGetLastError();
 }
 
 bool divides(int v, long long x) { return x % v == 0; }
 
-int cell_path(const int8_t* q, const float* scales, float* out,
-              const Layout& l, cudaStream_t stream) {
+template <typename T>
+int cell_path(const T* q, const float* scales, float* out, const Layout& l,
+              cudaStream_t stream) {
   // the workers' rows of a cell lie end to end: copy the cell as one row
+  const long long size = sizeof(T);
   const bool one_row = l.n == 1 || l.q_sn == l.c;
   const int rows = one_row ? 1 : l.n;
-  const int row_len = one_row ? l.n * (int)l.c : (int)l.c;
-  const long long row_stride = one_row ? 0 : l.q_sn;
+  const int row_len = (int)((one_row ? l.n * l.c : l.c) * size);
+  const long long row_stride = one_row ? 0 : l.q_sn * size;
   // the widest load that every row start and length allows
   int v = 16;
   while (v > 1 && !(divides(v, row_len) && divides(v, row_stride) &&
-                    (l.m == 1 || divides(v, l.q_sm)) &&
+                    (l.m == 1 || divides(v, l.q_sm * size)) &&
                     divides(v, (long long)reinterpret_cast<uintptr_t>(q))))
     v >>= 1;
   switch (v) {
-    case 16: return launch_cell<16>(q, scales, out, l, rows, row_len,
-                                    row_stride, stream);
-    case 8: return launch_cell<8>(q, scales, out, l, rows, row_len,
-                                  row_stride, stream);
-    case 4: return launch_cell<4>(q, scales, out, l, rows, row_len,
-                                  row_stride, stream);
-    case 2: return launch_cell<2>(q, scales, out, l, rows, row_len,
-                                  row_stride, stream);
-    default: return launch_cell<1>(q, scales, out, l, rows, row_len,
-                                   row_stride, stream);
+    case 16: return launch_cell<T, 16>(q, scales, out, l, rows, row_len,
+                                       row_stride, stream);
+    case 8: return launch_cell<T, 8>(q, scales, out, l, rows, row_len,
+                                     row_stride, stream);
+    case 4: return launch_cell<T, 4>(q, scales, out, l, rows, row_len,
+                                     row_stride, stream);
+    case 2: return launch_cell<T, 2>(q, scales, out, l, rows, row_len,
+                                     row_stride, stream);
+    default: return launch_cell<T, 1>(q, scales, out, l, rows, row_len,
+                                      row_stride, stream);
   }
+}
+
+// staging pays where outputs are few (the round's 5120: one thread an
+// output would fill 20 SMs with chains of N loads); with a wave of
+// threads or more, one thread an output is the shorter chain
+template <typename T>
+int cell_or_out(const T* q, const float* scales, float* out, const Layout& l,
+                bool cell_fits, cudaStream_t stream) {
+  const bool few = l.m * l.c < (long long)kOutThreads * sm_count();
+  if (cell_fits && few) return cell_path(q, scales, out, l, stream);
+  const unsigned int blocks =
+      stride_grid(ring_sum_out_kernel<T>, l.m * l.c, kOutThreads, kOutWaves);
+  ring_sum_out_kernel<T><<<blocks, kOutThreads, 0, stream>>>(q, scales, out,
+                                                             l);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -280,15 +321,19 @@ int ring_sum(const int8_t* q, const float* scales, float* out, int n,
     ring_sum_wide_kernel<<<blocks, kWideThreads, 0, st>>>(q, scales, out, l);
     return (int)cudaGetLastError();
   }
-  // staging pays where outputs are few (the round's 5120: one thread an
-  // output would fill 20 SMs with chains of N loads); with a wave of
-  // threads or more, one thread an output is the shorter chain
-  const bool few = m * c < (long long)kOutThreads * sm_count();
-  if (cell_fits && few) return cell_path(q, scales, out, l, st);
-  const unsigned int blocks =
-      stride_grid(ring_sum_out_kernel, m * c, kOutThreads, kOutWaves);
-  ring_sum_out_kernel<<<blocks, kOutThreads, 0, st>>>(q, scales, out, l);
-  return (int)cudaGetLastError();
+  return cell_or_out(q, scales, out, l, cell_fits, st);
+}
+
+// x: [n, m, c] float32 with strides x_sn, x_sm (elements) on its first two
+// axes and a contiguous last one; out: [m, c] contiguous.  Returns a
+// cudaError_t.
+int worker_sum(const float* x, float* out, int n, long long m, long long c,
+               long long x_sn, long long x_sm, void* stream) {
+  if (m * c == 0) return (int)cudaSuccess;
+  const Layout l{n, m, c, x_sn, x_sm, 0, 0};
+  const bool cell_fits = 4LL * n * c + 16 <= kCellSmem;
+  return cell_or_out(x, (const float*)nullptr, out, l, cell_fits,
+                     (cudaStream_t)stream);
 }
 
 const char* ring_sum_error_string(int code) {

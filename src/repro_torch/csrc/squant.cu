@@ -22,14 +22,13 @@
 // writes out (5 B in f32); dequant_apply reads w and q and writes out (9 B
 // in f32).
 //
-// encode: one block per tile, B1's two-pass design (fused_memory.cu) on a
-// 2-D tile.  Pass 1 sums x*x into a deterministic block reduction
-// (block_sum.cuh: no float atomics, so the same inputs give the same levels
-// on every run); pass 2 re-reads x and u, from L2 for the reference's
-// 256 x 256 tiles (256 KiB of f32, more than one SM's shared memory), and
-// writes the levels.  One block per tile leaves SMs idle when the array has
-// few tiles (16 blocks on 132 SMs at [4096, 256]): splitting a tile's
-// reduction across blocks is a design point for later.
+// encode: tile_quant.cuh without a memory, the design B1 (fused_memory.cu)
+// shares: a group of 4-32 lanes a tile for tiles of at most 1024 elements;
+// larger tiles split across a thread-block cluster of up to 16 CTAs that
+// sums the norm in rank order through distributed shared memory
+// (tile_norm.cuh: no float atomics, so the same inputs give the same levels
+// on every run), holding its share in registers ((256, 256) tiles) or
+// streaming it twice (rows of 2^20).  x and u are each f32 or bf16.
 //
 // decode: a grid-stride loop over chunks of 16 consecutive elements of a
 // row, sized to a few waves of the card's SMs (grid.cuh: 256 blocks at
@@ -41,10 +40,14 @@
 // bf16) cover 512 contiguous bytes across the warp.  Any other block takes
 // one element a thread in the same kernel.
 //
-// dequant_apply: elementwise over a 2-D grid, one row of the array per
-// blockIdx.y (striding when M > 65535) and one element per thread along it;
-// each thread reads its tile's scale, which the threads of a row share
-// through the cache.
+// dequant_apply: decode's design with w read beside the levels.  A thread
+// takes a chunk of 16 levels (one 16-byte load) and its tile's scale, once
+// a chunk; after the warp's trade each lane reads and writes 16-byte slots
+// of w and w' that cover 512 contiguous bytes across the warp, its loads of
+// w issued before the trade.  Levels become floats by a byte permute into
+// 2^23's mantissa and one subtraction (warp_trade.cuh's level<k>), not the
+// quarter-rate int-to-float unit.  The same blocks as decode's take one
+// element a thread.
 //
 // Rounding: the arithmetic uses __fmul_rn/__fsub_rn/__fdiv_rn/__fsqrt_rn so
 // that nvcc cannot contract it into an FMA (and with IEEE division, not the
@@ -57,95 +60,49 @@
 // the tests can feed both versions the same numbers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
-#include "block_sum.cuh"
 #include "grid.cuh"
+#include "tile_quant.cuh"
+#include "warp_trade.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 1024;   // encode: threads per tile
 constexpr int kThreads = 256;       // decode, dequant_apply: threads per block
 constexpr int kWaves = 4;           // decode: at most 4 waves of blocks
 constexpr int kVec = 16;            // decode: elements a thread takes
 
-__device__ __forceinline__ float load(const float* p, long long i) {
-  return p[i];
-}
-__device__ __forceinline__ float load(const __nv_bfloat16* p, long long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store(float* p, long long i, float v) {
-  p[i] = v;
-}
-__device__ __forceinline__ void store(__nv_bfloat16* p, long long i,
-                                      float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
-
-// v rounded to the element type T and back: exact for f32
-template <typename T>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-template <typename TX, typename TU>
-__global__ void squant_encode_kernel(const TX* __restrict__ x,
-                                     const TU* __restrict__ u, int s,
-                                     long long n, int bm, int bn,
-                                     long long tiles_per_row,
-                                     int8_t* __restrict__ q,
-                                     float* __restrict__ scales) {
-  __shared__ float warp_sums[32];
-  const long long tile = blockIdx.x;
-  const long long row0 = (tile / tiles_per_row) * bm;
-  const long long col0 = (tile % tiles_per_row) * bn;
-  const int tile_elems = bm * bn;     // the wrapper keeps it below 2^31
-
-  float acc = 0.f;
-  for (int k = threadIdx.x; k < tile_elems; k += blockDim.x) {
-    const int r = k / bn;
-    const float v = load(x, (row0 + r) * n + col0 + (k - r * bn));
-    acc = __fadd_rn(acc, __fmul_rn(v, v));
-  }
-  const float norm = __fsqrt_rn(block_sum(acc, warp_sums));
-  const float sf = (float)s;
-  const float scale = isfinite(norm) ? __fdiv_rn(norm, sf) : 0.f;
-  const float safe = norm > 0.f ? norm : 1.f;
-  if (threadIdx.x == 0) scales[tile] = scale;
-
-  for (int k = threadIdx.x; k < tile_elems; k += blockDim.x) {
-    const int r = k / bn;
-    const long long i = (row0 + r) * n + col0 + (k - r * bn);
-    const float v = load(x, i);
-    const float ratio = __fmul_rn(__fdiv_rn(fabsf(v), safe), sf);
-    const float low = floorf(ratio);
-    const float psi =
-        __fadd_rn(low, load(u, i) < __fsub_rn(ratio, low) ? 1.f : 0.f);
-    const float sign = v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
-    const float qf = __fmul_rn(sign, psi);
-    q[i] = isnan(qf) ? (int8_t)0 : (int8_t)(int)qf;
-  }
-}
+using tile_quant::bf16;
+using tile_quant::round_to;
+using tile_quant::widen;
 
 // 16 bytes of T at p (16-byte aligned): 4 f32 or 8 bf16 values, each
 // rounded to T
-__device__ __forceinline__ void store_vec(float* p, const float* v) {
+__device__ __forceinline__ void store16(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* v) {
+__device__ __forceinline__ void store16(bf16* p, const float* v) {
   __nv_bfloat162 h[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
   *reinterpret_cast<int4*>(p) = *reinterpret_cast<const int4*>(h);
+}
+
+// the 4 f32 or 8 bf16 values of a 16-byte word loaded from T, as floats
+template <typename T>
+__device__ __forceinline__ void widen16_as(const int4& raw, float* v) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(&raw);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x, v[2 * k + 1] = f.y;
+    }
+  }
 }
 
 // kE = 16: the vector path; kE = 1: one element a thread
@@ -173,7 +130,7 @@ __global__ void squant_decode_kernel(const int8_t* __restrict__ q,
       sc = round_to<T>(scales[(row / bm) * tiles_per_row + col / bn]);
     }
     if constexpr (kE == 1) {
-      if (live) store(out, i, __fmul_rn((float)q[i], sc));
+      if (live) tile_quant::put(out + i, __fmul_rn((float)q[i], sc));
     } else if (k0 + 32 <= total) {
       // The warp's 32 chunks are 512 consecutive values.  Each lane loads
       // its chunk's 16 levels and scale, and the warp trades them through
@@ -196,7 +153,7 @@ __global__ void squant_decode_kernel(const int8_t* __restrict__ q,
         float x[kPer];
 #pragma unroll
         for (int t = 0; t < kPer; ++t) x[t] = __fmul_rn((float)b[t], s_j);
-        store_vec(base + j * kPer, x);
+        store16(base + j * kPer, x);
       }
       __syncwarp();
     } else if (live) {
@@ -207,37 +164,118 @@ __global__ void squant_decode_kernel(const int8_t* __restrict__ q,
 #pragma unroll
       for (int t = 0; t < kE; ++t) x[t] = __fmul_rn((float)b[t], sc);
 #pragma unroll
-      for (int v = 0; v < kE / kPer; ++v) store_vec(out + i + v * kPer,
-                                                  x + v * kPer);
+      for (int v = 0; v < kE / kPer; ++v) store16(out + i + v * kPer,
+                                                x + v * kPer);
     }
   }
 }
 
+// w - gamma * (q * scale), each operation rounded to T; g and sc are
+// already rounded to T
 template <typename T>
+__device__ __forceinline__ float apply(float w, float qf, float sc,
+                                       float g) {
+  const float dq = round_to<T>(__fmul_rn(qf, sc));
+  return __fsub_rn(w, round_to<T>(__fmul_rn(g, dq)));
+}
+
+// kE = 16: the vector path, a grid-stride loop over 16-level chunks;
+// kE = 1: one element a thread, a row of the array per blockIdx.y (striding
+// when M > 65535) and its columns over the x threads, so that a row's tile
+// offset is found once and no element needs a 64-bit division
+template <typename T, int kE>
 __global__ void dequant_apply_kernel(const T* __restrict__ w,
                                      const int8_t* __restrict__ q,
                                      const float* __restrict__ scales,
-                                     float gamma, long long m, int n, int bm,
-                                     int bn, long long tiles_per_row,
+                                     float gamma, long long m, long long n,
+                                     int bm, int bn, long long tiles_per_row,
                                      T* __restrict__ out) {
   const float g = round_to<T>(gamma);
-  for (long long row = blockIdx.y; row < m; row += gridDim.y) {
-    const long long tile_row = (row / bm) * tiles_per_row;
-    for (int col = blockIdx.x * blockDim.x + threadIdx.x; col < n;
-         col += gridDim.x * blockDim.x) {
-      const long long i = row * n + col;
-      const float sc = round_to<T>(scales[tile_row + col / bn]);
-      const float dq = round_to<T>(__fmul_rn((float)q[i], sc));
-      const float step = round_to<T>(__fmul_rn(g, dq));
-      store(out, i, __fsub_rn(load(w, i), step));
+  if constexpr (kE == 1) {
+    for (long long row = blockIdx.y; row < m; row += gridDim.y) {
+      const long long tile_row = (row / bm) * tiles_per_row;
+      for (int col = blockIdx.x * blockDim.x + threadIdx.x; col < n;
+           col += gridDim.x * blockDim.x) {
+        const long long i = row * n + col;
+        const float sc = round_to<T>(scales[tile_row + col / bn]);
+        tile_quant::put(out + i, apply<T>(widen(w[i]), (float)q[i], sc, g));
+      }
+    }
+  } else {
+    constexpr int kPer = 16 / sizeof(T);     // values in a 16-byte slot
+    constexpr int kSlots = kE / kPer;        // 16-byte slots a lane takes
+    __shared__ int4 levels[kThreads];
+    __shared__ float tile_scale[kThreads];
+    const int lane = threadIdx.x & 31, warp0 = threadIdx.x - lane;
+    const long long total = m * n / kE;
+    // a warp takes 32 consecutive chunks; chunk k is w[k * kE ...]
+    for (long long k0 = blockIdx.x * (long long)blockDim.x + warp0;
+         k0 < total; k0 += (long long)gridDim.x * blockDim.x) {
+      const long long k = k0 + lane;
+      const bool live = k < total;
+      const long long i = k * kE;
+      float sc = 0.f;
+      if (live) {
+        const long long row = i / n;
+        const long long col = i - row * n;
+        sc = round_to<T>(scales[(row / bm) * tiles_per_row + col / bn]);
+      }
+      if (k0 + 32 <= total) {
+        // The warp's 32 chunks are 512 consecutive values.  Each lane loads
+        // its chunk's 16 levels and scale and its slots of w (slot j = v * 32
+        // + lane of the warp's 512 values), then the warp trades the levels
+        // and scales through shared memory, so that every 16-byte load of w
+        // and store of w' covers 512 contiguous bytes across the warp.
+        const int4 lv = *reinterpret_cast<const int4*>(q + i);
+        const T* wb = w + k0 * kE;
+        int4 wr[kSlots];
+#pragma unroll
+        for (int v = 0; v < kSlots; ++v)
+          wr[v] = *reinterpret_cast<const int4*>(wb + (v * 32 + lane) * kPer);
+        levels[threadIdx.x] = lv;
+        tile_scale[threadIdx.x] = sc;
+        __syncwarp();
+        const unsigned int* words =
+            reinterpret_cast<const unsigned int*>(levels + warp0);
+        T* ob = out + k0 * kE;
+#pragma unroll
+        for (int v = 0; v < kSlots; ++v) {
+          const int j = v * 32 + lane;           // the warp's j-th slot
+          const float s_j = tile_scale[warp0 + j * kPer / kE];
+          float x[kPer];
+          widen16_as<T>(wr[v], x);
+#pragma unroll
+          for (int t = 0; t < kPer / 4; ++t) {
+            const unsigned int b = words[j * (kPer / 4) + t] ^ 0x80808080u;
+            x[4 * t] = apply<T>(x[4 * t], level<0>(b), s_j, g);
+            x[4 * t + 1] = apply<T>(x[4 * t + 1], level<1>(b), s_j, g);
+            x[4 * t + 2] = apply<T>(x[4 * t + 2], level<2>(b), s_j, g);
+            x[4 * t + 3] = apply<T>(x[4 * t + 3], level<3>(b), s_j, g);
+          }
+          store16(ob + j * kPer, x);
+        }
+        __syncwarp();
+      } else if (live) {
+        // the array's last, partial warp: each lane its own chunk
+        const int4 lv = *reinterpret_cast<const int4*>(q + i);
+        const unsigned int* words = reinterpret_cast<const unsigned int*>(&lv);
+#pragma unroll
+        for (int v = 0; v < kSlots; ++v) {
+          float x[kPer];
+          widen16_as<T>(*reinterpret_cast<const int4*>(w + i + v * kPer), x);
+#pragma unroll
+          for (int t = 0; t < kPer / 4; ++t) {
+            const unsigned int b = words[v * (kPer / 4) + t] ^ 0x80808080u;
+            x[4 * t] = apply<T>(x[4 * t], level<0>(b), sc, g);
+            x[4 * t + 1] = apply<T>(x[4 * t + 1], level<1>(b), sc, g);
+            x[4 * t + 2] = apply<T>(x[4 * t + 2], level<2>(b), sc, g);
+            x[4 * t + 3] = apply<T>(x[4 * t + 3], level<3>(b), sc, g);
+          }
+          store16(out + i + v * kPer, x);
+        }
+      }
     }
   }
-}
-
-int encode_threads(long long tile_elems) {
-  int threads = 32;
-  while (threads < kMaxThreads && threads < tile_elems) threads <<= 1;
-  return threads;
 }
 
 template <typename T, int kE>
@@ -250,9 +288,19 @@ int decode(const int8_t* q, const float* scales, long long m, long long n,
   return (int)cudaGetLastError();
 }
 
-dim3 elementwise_grid(long long m, long long n) {
-  const long long gx = (n + kThreads - 1) / kThreads;
-  return dim3((unsigned int)gx, (unsigned int)(m < 65535 ? m : 65535));
+template <typename T, int kE>
+int apply_launch(const void* w, const int8_t* q, const float* scales,
+                 float gamma, long long m, long long n, int bm, int bn,
+                 void* out, cudaStream_t stream) {
+  // one element a thread: a block row per array row, up to 65535
+  const dim3 grid =
+      kE == 1 ? dim3((unsigned int)((n + kThreads - 1) / kThreads),
+                     (unsigned int)(m < 65535 ? m : 65535))
+              : dim3(stride_grid(dequant_apply_kernel<T, kE>, m * n / kE,
+                                 kThreads, kWaves));
+  dequant_apply_kernel<T, kE><<<grid, kThreads, 0, stream>>>(
+      (const T*)w, q, scales, gamma, m, n, bm, bn, n / bn, (T*)out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -266,30 +314,23 @@ extern "C" {
 int squant_encode(const void* x, int x_bf16, const void* u, int u_bf16,
                   int s, long long m, long long n, int bm, int bn, int8_t* q,
                   float* scales, void* stream) {
-  const long long tiles_per_row = n / bn;
-  const long long n_tiles = (m / bm) * tiles_per_row;
-  if (n_tiles == 0) return (int)cudaSuccess;
-  const int threads = encode_threads((long long)bm * bn);
-  const unsigned int grid = (unsigned int)n_tiles;
   cudaStream_t st = (cudaStream_t)stream;
-  typedef __nv_bfloat16 bf16;
+  using tile_quant::launch;
   if (x_bf16 && u_bf16)
-    squant_encode_kernel<bf16, bf16><<<grid, threads, 0, st>>>(
-        (const bf16*)x, (const bf16*)u, s, n, bm, bn, tiles_per_row, q,
-        scales);
-  else if (x_bf16)
-    squant_encode_kernel<bf16, float><<<grid, threads, 0, st>>>(
-        (const bf16*)x, (const float*)u, s, n, bm, bn, tiles_per_row, q,
-        scales);
-  else if (u_bf16)
-    squant_encode_kernel<float, bf16><<<grid, threads, 0, st>>>(
-        (const float*)x, (const bf16*)u, s, n, bm, bn, tiles_per_row, q,
-        scales);
-  else
-    squant_encode_kernel<float, float><<<grid, threads, 0, st>>>(
-        (const float*)x, (const float*)u, s, n, bm, bn, tiles_per_row, q,
-        scales);
-  return (int)cudaGetLastError();
+    return launch<bf16, bf16, false>((const bf16*)x, nullptr,
+                                     (const bf16*)u, 0.f, s, m, n, bm, bn,
+                                     q, scales, nullptr, st);
+  if (x_bf16)
+    return launch<bf16, float, false>((const bf16*)x, nullptr,
+                                      (const float*)u, 0.f, s, m, n, bm, bn,
+                                      q, scales, nullptr, st);
+  if (u_bf16)
+    return launch<float, bf16, false>((const float*)x, nullptr,
+                                      (const bf16*)u, 0.f, s, m, n, bm, bn,
+                                      q, scales, nullptr, st);
+  return launch<float, float, false>((const float*)x, nullptr,
+                                     (const float*)u, 0.f, s, m, n, bm, bn,
+                                     q, scales, nullptr, st);
 }
 
 // q, out: [m, n] row-major (n < 2^31); scales: [m / bm, n / bn]; out is
@@ -302,8 +343,8 @@ int squant_decode(const int8_t* q, const float* scales, long long m,
                    aligned16(out);
   cudaStream_t st = (cudaStream_t)stream;
   if (out_bf16)
-    return vec ? decode<__nv_bfloat16, kVec>(q, scales, m, n, bm, bn, out, st)
-               : decode<__nv_bfloat16, 1>(q, scales, m, n, bm, bn, out, st);
+    return vec ? decode<bf16, kVec>(q, scales, m, n, bm, bn, out, st)
+               : decode<bf16, 1>(q, scales, m, n, bm, bn, out, st);
   return vec ? decode<float, kVec>(q, scales, m, n, bm, bn, out, st)
              : decode<float, 1>(q, scales, m, n, bm, bn, out, st);
 }
@@ -314,17 +355,18 @@ int dequant_apply(const void* w, int w_bf16, const int8_t* q,
                   const float* scales, float gamma, long long m, long long n,
                   int bm, int bn, void* out, void* stream) {
   if (m == 0 || n == 0) return (int)cudaSuccess;
-  const dim3 grid = elementwise_grid(m, n);
+  const bool vec = n % kVec == 0 && bn % kVec == 0 && aligned16(q) &&
+                   aligned16(w) && aligned16(out);
   cudaStream_t st = (cudaStream_t)stream;
   if (w_bf16)
-    dequant_apply_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)w, q, scales, gamma, m, (int)n, bm, bn,
-        n / bn, (__nv_bfloat16*)out);
-  else
-    dequant_apply_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const float*)w, q, scales, gamma, m, (int)n, bm, bn, n / bn,
-        (float*)out);
-  return (int)cudaGetLastError();
+    return vec ? apply_launch<bf16, kVec>(w, q, scales, gamma, m, n, bm, bn,
+                                          out, st)
+               : apply_launch<bf16, 1>(w, q, scales, gamma, m, n, bm, bn,
+                                       out, st);
+  return vec ? apply_launch<float, kVec>(w, q, scales, gamma, m, n, bm, bn,
+                                         out, st)
+             : apply_launch<float, 1>(w, q, scales, gamma, m, n, bm, bn, out,
+                                      st);
 }
 
 const char* squant_error_string(int code) {

@@ -5,8 +5,9 @@ API over them."""
 from repro_torch.kernels import bucket_ring, fused_memory, ring_sum, squant
 
 KERNELS = (fused_memory.fused_memory_update, ring_sum.ring_sum,
-           bucket_ring.bucket_acc, bucket_ring.bucket_ring_sum,
-           squant.squant_encode, squant.squant_decode, squant.dequant_apply)
+           ring_sum.worker_sum, bucket_ring.bucket_acc,
+           bucket_ring.bucket_ring_sum, squant.squant_encode,
+           squant.squant_decode, squant.dequant_apply)
 
 
 def reset_launches() -> None:

@@ -5,17 +5,20 @@ Each ``csrc/<name>.cu`` compiles on its own with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>-<hash>.so
 
-into a shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds).  ``<hash>`` covers the source, every file under
-``csrc/`` that is not a kernel source (``*.cu``), and the flags: headers
-shared between kernels (``block_sum.cuh``, ``grid.cuh``, ``tile_norm.cuh``,
+into a shared library with a plain C interface (no PyTorch headers: all
+four build at once in about 28 s on the H100's host, most of it the squant
+library's template instances, not the minutes PyTorch's headers cost).  ``<hash>`` covers
+the source, every file under ``csrc/`` that is not a kernel source
+(``*.cu``), and the flags: headers shared between kernels
+(``block_sum.cuh``, ``grid.cuh``, ``tile_norm.cuh``, ``tile_quant.cuh``,
 ``warp_trade.cuh``) count for every library, so an edited source or header
 is never served a stale library.
 ptxas's register and spill report goes to ``lib<name>-<hash>.log`` beside
 it.
 
 A library may export several entry points: ``SIGNATURES`` maps each library
-to its functions' C argument types (``squant`` has three).
+to its functions' C argument types (``squant`` has three, ``ring_sum``
+two).
 
 Nothing builds at import time: the CPU tests import every module, and the
 CPU has no ``nvcc``.
@@ -40,10 +43,11 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # library -> {entry point: argtypes in the order of its C signature}
 SIGNATURES = {
-    "fused_memory": {"fused_memory_update": (_P, _P, _P, _F, _I, _LL, _LL,
-                                             _I, _I, _P, _P, _P, _P)},
+    "fused_memory": {"fused_memory_update": (_P, _P, _P, _I, _F, _I, _LL,
+                                             _LL, _I, _I, _P, _P, _P, _P)},
     "ring_sum": {"ring_sum": (_P, _P, _P, _I, _LL, _LL, _LL, _LL, _LL, _LL,
-                              _P)},
+                              _P),
+                 "worker_sum": (_P, _P, _I, _LL, _LL, _LL, _LL, _P)},
     "bucket_ring": {"bucket_acc_hop": (_P, _P, _P, _P, _LL, _LL, _LL, _LL,
                                        _P)},
     "squant": {

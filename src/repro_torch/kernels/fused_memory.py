@@ -12,14 +12,20 @@ fused_memory_update`` with the hand-written CUDA kernel
 and returns ``(q int8 [M, N], scales f32 [M/bm, N/bn], h_new [M, N])``.  The
 Artemis round calls it with ``block=(1, d)``: one worker row per tile, so the
 scale is that worker's L2 norm over s.  The compression API
-(``ops.memory_update``) calls it on (256, 256) tiles.
+(``ops.memory_update``) calls it on (256, 256) tiles.  g, h and u share one
+dtype, float32 or bfloat16, and h_new comes back in it; in bfloat16 each
+step of g - h and of the memory update is rounded to it, as the Pallas
+kernel writes them (``ref.fused_memory_ref``), and the norm and levels are
+float32.
 
-Bound on an H100 SXM: bytes.  Per element it reads g, h, u (12 B) and writes
-q and h_new (5 B), plus one 4 B scale per tile, at 3.35 TB/s.  The kernel
-picks one of three regimes from the tile's size, one launch each: tiles of
-at most 1024 elements (the round's rows) go to a group of 4 to 32 lanes
-with the norm reduced by shuffles; larger tiles are split across a
-thread-block cluster that sums the norm through distributed shared memory
+Bound on an H100 SXM: bytes.  Per element it reads g, h, u (12 B in f32, 6 B
+in bf16) and writes q and h_new (5 B, 3 B), plus one 4 B scale per tile, at
+3.35 TB/s.  The kernel is ``csrc/tile_quant.cuh`` with a memory (the
+encode of ``squant.py`` is the same kernel without one); it picks one of
+three regimes from the tile's size, one launch each: tiles of at most 1024
+elements (the round's rows) go to a group of 4 to 32 lanes with the norm
+reduced by shuffles; larger tiles are split across a thread-block cluster
+that sums the norm through distributed shared memory
 (``csrc/tile_norm.cuh``), holding its share in registers ((256, 256)
 tiles) or streaming it twice (rows of 2^20).  See the source.
 
@@ -36,6 +42,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 DEFAULT_BLOCK = (256, 256)
+FLOATS = (torch.float32, torch.bfloat16)
 
 
 def _check(g, h, u, s, block) -> Tuple[int, int]:
@@ -45,9 +52,10 @@ def _check(g, h, u, s, block) -> Tuple[int, int]:
         raise ValueError(f"g, h, u must share one 2-D shape: "
                          f"{tuple(g.shape)}, {tuple(h.shape)}, "
                          f"{tuple(u.shape)}")
-    for name, t in (("g", g), ("h", h), ("u", u)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if g.dtype not in FLOATS or h.dtype != g.dtype or u.dtype != g.dtype:
+        raise TypeError(f"g, h and u must share one dtype of {FLOATS}, got "
+                        f"{g.dtype}, {h.dtype} and {u.dtype}")
+    for name, t in (("h", h), ("u", u)):
         if t.device != g.device:
             raise ValueError(f"{name} is on {t.device}, g on {g.device}")
     bm, bn = (int(b) for b in block)
@@ -68,7 +76,8 @@ def fused_memory_update_plain(g: torch.Tensor, h: torch.Tensor,
 
 def fused_memory_update(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
                         alpha: float, *, s: int = 1, block=DEFAULT_BLOCK):
-    """Returns (q int8 [M, N], scales f32 [M/bm, N/bn], h_new f32 [M, N])."""
+    """g, h, u [M, N] in one dtype (f32 or bf16) -> (q int8 [M, N], scales
+    f32 [M/bm, N/bn], h_new [M, N] in g's dtype)."""
     if g.device.type == "cpu":
         return fused_memory_update_plain(g, h, u, alpha, s=s, block=block)
     if g.device.type != "cuda":
@@ -90,7 +99,8 @@ def fused_memory_update(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         code = lib.fused_memory_update(
-            g.data_ptr(), h.data_ptr(), u.data_ptr(), float(alpha), int(s),
+            g.data_ptr(), h.data_ptr(), u.data_ptr(),
+            int(g.dtype == torch.bfloat16), float(alpha), int(s),
             m, n, bm, bn, q.data_ptr(), scales.data_ptr(), h_new.data_ptr(),
             stream)
     _build.check("fused_memory", code)

@@ -102,9 +102,11 @@ def memory_update(g: torch.Tensor, h: torch.Tensor, alpha,
                   u: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None, *,
                   s: int = 1, block=DEFAULT_BLOCK):
-    """The fused Artemis worker step on a gradient of any shape (f32).
+    """The fused Artemis worker step on a gradient of any shape (f32 or
+    bf16; h in g's dtype, the uniforms drawn in it).
 
-    Returns (delta_hat decoded to g's shape and dtype, h_new, the wire)."""
+    Returns (delta_hat decoded to g's shape and dtype, h_new in g's dtype,
+    the wire)."""
     g2d, shape = _pack(g, block)
     h2d, _ = _pack(h, block)
     q, scales, h_new2d = _fm.fused_memory_update(

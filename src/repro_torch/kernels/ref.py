@@ -61,10 +61,16 @@ def squant_decode_ref(q: torch.Tensor, scales: torch.Tensor, bm: int,
 def fused_memory_ref(g: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
                      alpha: float, s: int, bm: int, bn: int):
     """delta = g - h; (q, scales) = encode(delta); h' = h + alpha * deq(q).
-    Returns (q, scales, h_new): the fused kernel's arithmetic (the memory
-    update is a multiply, then a multiply by alpha, then an add)."""
+    Returns (q, scales f32, h_new in g's dtype): the fused kernel's
+    arithmetic, as the Pallas kernel writes it.  g - h is rounded to g's
+    dtype, the norm and levels are in f32, and the memory update rounds
+    alpha (f32, then g's dtype), the scale, q * scale, alpha * (...) and
+    h + ... each to g's dtype in turn (exact in f32 but for alpha's f32
+    rounding)."""
     q, scales = squant_encode_ref(g - h, u, s, bm, bn)
-    h_new = h + alpha * squant_decode_ref(q, scales, bm, bn, dtype=g.dtype)
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=g.device)
+    h_new = h + a.to(g.dtype) * squant_decode_ref(q, scales, bm, bn,
+                                                  dtype=g.dtype)
     return q, scales, h_new
 
 

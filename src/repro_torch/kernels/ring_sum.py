@@ -20,6 +20,14 @@ contiguous.
 ``ring_sum`` launches the kernel for CUDA tensors (or raises) and takes
 ``ring_sum_plain`` only for CPU tensors.  ``ring_sum.launches`` counts kernel
 launches.
+
+``worker_sum`` is a helper of the same kernel, not a TPU kernel of its own:
+the sum over the worker axis of float32 rows ``x [..., N, d] -> [..., d]``,
+in worker order from 0.0, as ``jnp.sum(x, axis=0)`` adds on the CPU (the
+Artemis round's server sums, the sweep's bit meter).  The same loop as
+ring_sum's, templated on its load: a float32 row instead of a level times a
+scale.  One launch replaces torch's one reduction, whose order is not the
+workers'.  ``worker_sum.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -80,3 +88,48 @@ def ring_sum(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 
 ring_sum.launches = 0
+
+
+def _check_rows(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"worker_sum adds float32 rows, not {x.dtype}")
+    if x.dim() < 2:
+        raise ValueError(f"worker_sum needs [..., N, d], got "
+                         f"{tuple(x.shape)}")
+
+
+def worker_sum_plain(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's sum in plain PyTorch: a loop over the N workers, each
+    step one add over every other axis."""
+    _check_rows(x)
+    acc = torch.zeros(x.shape[:-2] + x.shape[-1:], dtype=torch.float32,
+                      device=x.device)
+    for i in range(x.shape[-2]):
+        acc = acc + x[..., i, :]
+    return acc
+
+
+def worker_sum(x: torch.Tensor) -> torch.Tensor:
+    """x: [..., N, d] float32 -> [..., d], summed over N in worker order."""
+    if x.device.type == "cpu":
+        return worker_sum_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"worker_sum runs on cuda or cpu, not {x.device}")
+    _check_rows(x)
+    *lead, n, d = x.shape
+    if d > 1 and x.stride(-1) != 1:
+        x = x.contiguous()
+    rows = x.reshape(-1, n, d)              # a view where the strides allow
+    m = rows.shape[0]
+    out = torch.empty((m, d), dtype=torch.float32, device=x.device)
+    lib = _build.load("ring_sum")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.worker_sum(rows.data_ptr(), out.data_ptr(), n, m, d,
+                              rows.stride(1), rows.stride(0), stream)
+    _build.check("ring_sum", code)
+    worker_sum.launches += 1
+    return out.reshape(*lead, d)
+
+
+worker_sum.launches = 0

@@ -15,7 +15,10 @@ scale per tile:
 
 Bound on an H100 SXM: bytes, at 3.35 TB/s.  In f32, encode reads x and u and
 writes q (9 B per element, plus 4 B per tile), decode reads q and writes the
-values (5 B), dequant_apply reads w and q and writes w' (9 B).
+values (5 B), dequant_apply reads w and q and writes w' (9 B).  The encode
+is ``csrc/tile_quant.cuh`` without a memory, B1's design (lane groups for
+small tiles, a thread-block cluster for a (256, 256) tile); decode and
+dequant_apply take 16 levels a thread with 16-byte accesses.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
 plain version, the oracle of ``kernels/ref.py``, only for CPU tensors; any

@@ -3,9 +3,11 @@
 The uniforms are the ones the reference's key gives, drawn in the test with
 ``jax.random.uniform`` and handed to the port.  A message is the last axis;
 a [N, d] stack is compared with ``jax.vmap`` of the reference codec.
-Tolerances: int8 levels may differ on fewer than 1e-4 of the entries, each
-by at most 1 (the norm is reduced in another order); scales and decoded
-values to rtol 1e-6.
+Messages of at most 32 elements bit for bit: on the CPU the port adds the
+norm's squares in the reference's order (``core/codec.py``).  Longer ones
+(d = 40): int8 levels may differ on fewer than 1e-4 of the entries, each by
+at most 1 (XLA vectorises that reduce in an order the port does not
+repeat); scales and decoded values to rtol 1e-6.
 """
 import jax
 import jax.numpy as jnp
@@ -52,9 +54,12 @@ def test_encode_decode_match_reference(name, kw, shape):
     # message axis in the port: [..., 1] where the reference has [...])
     assert [str(t.dtype).removeprefix("torch.") for t in tp.leaves()] == \
         [str(a.dtype) for a in jax.tree_util.tree_leaves(jp)]
+    bitwise = shape[-1] <= twire.SEQUENTIAL_NORM_MAX
     for k in tp.keys():
         ref, out = np.asarray(jp[k]), tp[k].numpy()
-        if k == "levels":
+        if bitwise:
+            np.testing.assert_array_equal(out.reshape(ref.shape), ref)
+        elif k == "levels":
             q, qr = out.astype(np.int32), ref.astype(np.int32)
             assert (q != qr).mean() < 1e-4
             assert np.abs(q - qr).max(initial=0) <= 1
@@ -62,8 +67,42 @@ def test_encode_decode_match_reference(name, kw, shape):
             np.testing.assert_allclose(out.reshape(ref.shape), ref,
                                        rtol=1e-6)
     dec = jax.vmap(jc.decode)(jp) if x.ndim == 2 else jc.decode(jp)
-    np.testing.assert_allclose(tc.decode(tp).numpy(), np.asarray(dec),
-                               rtol=1e-6)
+    if bitwise:
+        np.testing.assert_array_equal(tc.decode(tp).numpy(), np.asarray(dec))
+    else:
+        np.testing.assert_allclose(tc.decode(tp).numpy(), np.asarray(dec),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("d", [2, 10, 20])
+@pytest.mark.parametrize("rows", [1, 6, 20])
+def test_norm_matches_reference_bitwise(d, rows):
+    """The port's CPU norms equal the reference's bit for bit: squant's
+    ``jnp.linalg.norm`` (a sequential FMA chain, vmapped over rows) and
+    row_squant's square-then-sum scale (sequential, a rounding each)."""
+    x = _x((rows, d), seed=100 * d + rows)
+    jn = np.asarray(jax.vmap(jnp.linalg.norm)(jnp.asarray(x)))
+    np.testing.assert_array_equal(
+        twire.l2_norm(torch.from_numpy(x)).numpy(), jn)
+    keys = jax.random.split(KEY, rows)
+    _, jsc = jax.vmap(lambda k, r: jwire.row_squant_encode(k, r, 1))(
+        keys, jnp.asarray(x))
+    _, tsc = twire.row_squant_encode(torch.from_numpy(x),
+                                     torch.zeros(rows, d), 1)
+    np.testing.assert_array_equal(tsc.numpy(), np.asarray(jsc))
+
+
+def test_fma32_rounds_once():
+    """a * b + c rounded once, also where float64 then float32 would round
+    twice: a * b = 2^-24 - 2^-70 and c = 1 + 2^-23 put the float64 sum on a
+    float32 tie that the exact sum is below (naive: 1 + 2^-22)."""
+    a = torch.tensor([2.0 ** -12 * (1 + 2.0 ** -23), 3.0])
+    b = torch.tensor([2.0 ** -12 * (1 - 2.0 ** -23), 0.5])
+    c = torch.tensor([1 + 2.0 ** -23, -1.0])
+    out = twire.fma32(a, b, c)
+    assert out.tolist() == [1 + 2.0 ** -23, 0.5]
+    naive = (a.double() * b.double() + c.double()).float()
+    assert float(naive[0]) == 1 + 2.0 ** -22
 
 
 @pytest.mark.parametrize("name,kw", CODECS)

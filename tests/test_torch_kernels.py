@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.kernels import fused_memory as jfm
+from repro.kernels import ref as jref
 from repro.kernels import ring_sum as jrs
 from repro_torch.kernels import fused_memory as tfm
 from repro_torch.kernels import ring_sum as trs
@@ -197,3 +198,87 @@ def test_ring_sum_takes_strided_worker_axis():
     ref = trs.ring_sum(q.transpose(0, 1).contiguous(),
                        sc.transpose(0, 1).contiguous())
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("n", [6, 20, 32])
+@pytest.mark.parametrize("lead,d", [((), 10), ((), 40), ((3,), 10)])
+def test_worker_sum_plain_matches_jnp_sum(n, lead, d):
+    """worker_sum adds the workers' rows in worker order from 0.0: bit for
+    bit what ``jnp.sum(x, axis=-2)`` gives on the CPU (the reference
+    round's server sums) up to 32 workers."""
+    x = np.random.default_rng(n + d).standard_normal(
+        lead + (n, d)).astype(np.float32)
+    ref = np.asarray(jnp.sum(jnp.asarray(x), axis=-2))
+    out = trs.worker_sum(torch.from_numpy(x))
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(), ref)
+    # a strided worker axis gives the same bits
+    xt = torch.from_numpy(np.ascontiguousarray(np.swapaxes(x, -1, -2)))
+    assert torch.equal(trs.worker_sum(xt.transpose(-1, -2)), out)
+
+
+def test_worker_sum_rejects_bad_input():
+    with pytest.raises(TypeError):
+        trs.worker_sum(torch.zeros(4, 3, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        trs.worker_sum(torch.zeros(4))
+    with pytest.raises(ValueError):
+        trs.worker_sum(torch.zeros(4, 3, device="meta"))
+
+
+# bf16 B1: the Artemis round's rows and the compression API's (256, 256)
+# tiles, one tile and two
+BF16_FUSED_CASES = [((8, 2), (1, 2)), ((8, 20), (1, 20)),
+                    ((64, 40), (1, 40)), ((256, 256), (256, 256)),
+                    ((256, 512), (256, 256))]
+
+
+def assert_fused_bf16_close(out, ref, alpha, block):
+    """bf16 bars against the interpreted Pallas kernel, whose XLA lowering
+    keeps g - h in f32 (it may skip bf16 roundings inside a fusion): levels
+    off by at most 1 on fewer than 1e-3 of the entries; scales to rtol
+    3e-3 (the port's bf16 encode bar); h_new, where the levels agree,
+    within two bf16 ulps of its terms, |h| + |alpha * q * scale|: the
+    scale's 3e-3 can move its bf16 rounding by an ulp, and the update
+    rounds after it."""
+    (q, sc, hn), (qr, scr, hnr) = out, ref
+    q, qr = q.numpy().astype(np.int32), np.asarray(qr, np.int32)
+    mismatch = q != qr
+    assert mismatch.mean() < 1e-3 and np.abs(q - qr).max() <= 1
+    np.testing.assert_allclose(sc.numpy(), np.asarray(scr), rtol=3e-3)
+    bm, bn = block
+    scr = np.repeat(np.repeat(np.asarray(scr), bm, 0), bn, 1)
+    hnr = np.asarray(hnr.astype(jnp.float32))
+    terms = np.abs(hn.float().numpy() - hnr)
+    bound = 2.0 ** -6 * (np.abs(hnr) + np.abs(alpha * qr * scr))
+    assert (terms <= bound)[~mismatch].all()
+
+
+@pytest.mark.parametrize("shape,block", BF16_FUSED_CASES)
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("alpha", [0.25, 0.5])
+def test_fused_memory_plain_bf16_matches_pallas(shape, block, s, alpha):
+    """g, h, u in bf16 (C1): h_new comes back in bf16 and scales in f32.
+    Against the reference's own oracle ``ref.fused_memory_ref`` (each step
+    rounded to bf16 as written): levels at the f32 bar and scales at the
+    port's bf16 one, rtol 3e-3 (both for the norm's order); h_new bit for
+    bit where the levels agree (rounding the scale to bf16 absorbs the
+    order's last f32 bits).  Against the interpreted Pallas kernel at the
+    bf16 bars above."""
+    g, h, u = _inputs(shape, seed=sum(shape) + s)
+    gj, hj, uj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (g, h, u))
+    gt, ht, ut = (torch.from_numpy(np.asarray(a.astype(jnp.float32)))
+                  .to(torch.bfloat16) for a in (gj, hj, uj))
+    out = tfm.fused_memory_update(gt, ht, ut, alpha, s=s, block=block)
+    assert out[0].dtype == torch.int8 and out[1].dtype == torch.float32
+    assert out[2].dtype == torch.bfloat16
+    oracle = jref.fused_memory_ref(gj, hj, uj, alpha, s, *block)
+    agree = assert_levels_close(out[0].numpy(), oracle[0])
+    np.testing.assert_allclose(out[1].numpy(), np.asarray(oracle[1]),
+                               rtol=3e-3)
+    np.testing.assert_array_equal(
+        out[2].float().numpy()[agree],
+        np.asarray(oracle[2].astype(jnp.float32))[agree])
+    ref = jfm.fused_memory_update(gj, hj, uj, alpha, s=s, block=block,
+                                  interpret=True)
+    assert_fused_bf16_close(out, ref, alpha, block)

@@ -8,8 +8,10 @@ JAX nor the JAX package, so they also run where only the port is installed:
 
 Tolerances: int8 levels may differ on fewer than 1e-4 of the entries, each
 by at most 1 (the kernel reduces the norm in another order); scales to
-rtol 1e-6; h_new to rtol 1e-5, atol 1e-6 where the levels agree; a second
-launch of fused_memory_update or ring_sum gives the same bits; ring_sum,
+rtol 1e-6; h_new to rtol 1e-5, atol 1e-6 where the levels agree in f32,
+and bit for bit where the levels and the bf16-rounded scales agree in bf16;
+a second launch of fused_memory_update, squant_encode, dequant_apply,
+worker_sum or ring_sum gives the same bits; worker_sum, ring_sum,
 bucket_acc, every in-place hop of bucket_acc_hop_ and bucket_ring_sum bit
 for bit (the same multiply-then-add, in worker order), and so the pipelined
 mesh ring equals the sequential one;
@@ -56,18 +58,32 @@ def assert_levels_close(q, qr):
     return diff == 0
 
 
+def _per_element(sc, block):
+    """Per-tile values [M/bm, N/bn] spread over the tiles' elements."""
+    bm, bn = block
+    return sc.repeat_interleave(bm, 0).repeat_interleave(bn, 1)
+
+
 def _fused_agrees(g, h, u, block, alpha=0.25, s=2):
     """One launch of B1 against its plain version at today's tolerances, and
-    a second launch giving the same bits."""
+    a second launch giving the same bits.  In bf16 h_new is held bit for bit
+    where the levels and the scales rounded to bf16 (the memory update's
+    factor) agree."""
     before = tfm.fused_memory_update.launches
     q, sc, hn = tfm.fused_memory_update(g, h, u, alpha, s=s, block=block)
     torch.cuda.synchronize()
     assert tfm.fused_memory_update.launches == before + 1
+    assert hn.dtype == g.dtype and sc.dtype == torch.float32
     qr, scr, hnr = tfm.fused_memory_update_plain(g, h, u, alpha, s=s,
                                                  block=block)
     agree = assert_levels_close(q, qr)
     torch.testing.assert_close(sc, scr, rtol=1e-6, atol=0)
-    torch.testing.assert_close(hn[agree], hnr[agree], rtol=1e-5, atol=1e-6)
+    if g.dtype == BF16:
+        agree &= _per_element(sc.to(BF16) == scr.to(BF16), block)
+        assert torch.equal(hn[agree], hnr[agree])
+    else:
+        torch.testing.assert_close(hn[agree], hnr[agree], rtol=1e-5,
+                                   atol=1e-6)
     again = tfm.fused_memory_update(g, h, u, alpha, s=s, block=block)
     for x, y in zip((q, sc, hn), again):
         assert torch.equal(x, y)
@@ -84,6 +100,22 @@ def _fused_agrees(g, h, u, block, alpha=0.25, s=2):
 def test_fused_memory_kernel_matches_plain(cuda_device, rows, d):
     g, h, u = _rand((rows, d), rows + d, cuda_device)
     _fused_agrees(g, h, u, (1, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,block", [((2560, 40), (1, 40)),
+                                         ((300, 1024), (1, 1024)),
+                                         ((256, 256), (256, 256)),
+                                         ((4096, 256), (256, 256)),
+                                         ((512, 510), (256, 255)),
+                                         ((4, 2**20), (1, 2**20))])
+def test_fused_memory_kernel_bf16(cuda_device, shape, block):
+    """C1: B1 on bf16 g, h, u in each of its regimes (lane groups, a
+    cluster's registers with 4-element and 1-element vectors, a cluster
+    streaming its share), h_new in bf16."""
+    g, h, u = (t.to(BF16) for t in _rand(shape, 7 * sum(shape),
+                                         cuda_device))
+    _fused_agrees(g, h, u, block, alpha=0.5, s=1)
 
 
 @pytest.mark.cuda
@@ -258,22 +290,44 @@ def test_mesh_pipelined_equals_sequential(cuda_device):
 # (256, 256) tiles
 # ---------------------------------------------------------------------------
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", OPS_SHAPES)
-@pytest.mark.parametrize("xdt,udt", [(torch.float32, torch.float32),
-                                     (BF16, BF16), (torch.float32, BF16)])
-def test_squant_encode_kernel_matches_plain(cuda_device, shape, xdt, udt):
-    x, _, u = _rand(shape, sum(shape), cuda_device)
-    x, u = x.to(xdt), u.to(udt)
+ENCODE_DTYPES = [(torch.float32, torch.float32), (BF16, BF16),
+                 (torch.float32, BF16), (BF16, torch.float32)]
+
+
+def _encode_agrees(x, u, s, block):
     before = tsq.squant_encode.launches
-    q, sc = tsq.squant_encode(x, u, s=4)
+    q, sc = tsq.squant_encode(x, u, s=s, block=block)
     torch.cuda.synchronize()
     assert tsq.squant_encode.launches == before + 1
-    qr, scr = tsq.squant_encode_plain(x, u, s=4)
+    qr, scr = tsq.squant_encode_plain(x, u, s=s, block=block)
     assert_levels_close(q, qr)
     torch.testing.assert_close(sc, scr, rtol=1e-6, atol=0)
-    # deterministic: the same inputs give the same levels
-    assert torch.equal(tsq.squant_encode(x, u, s=4)[0], q)
+    # deterministic: the same inputs give the same bits
+    q2, sc2 = tsq.squant_encode(x, u, s=s, block=block)
+    assert torch.equal(q2, q) and torch.equal(sc2, sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", OPS_SHAPES)
+@pytest.mark.parametrize("xdt,udt", ENCODE_DTYPES)
+def test_squant_encode_kernel_matches_plain(cuda_device, shape, xdt, udt):
+    x, _, u = _rand(shape, sum(shape), cuda_device)
+    _encode_agrees(x.to(xdt), u.to(udt), 4, (256, 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,block", [
+    ((2560, 40), (1, 40)),                  # a group of lanes a tile
+    ((256, 256), (256, 256)),               # one tile across a cluster
+    ((768, 512), (256, 256)),               # six tiles
+    ((512, 510), (256, 255)),               # one element a vector
+    ((4, 2**20), (1, 2**20))])              # a cluster streaming its share
+@pytest.mark.parametrize("xdt,udt", ENCODE_DTYPES)
+def test_squant_encode_kernel_regimes(cuda_device, shape, block, xdt, udt):
+    """The encode's three regimes (tile_quant.cuh without a memory) against
+    its plain version, for the four (x, u) dtype pairs."""
+    x, _, u = _rand(shape, 3 * sum(shape), cuda_device)
+    _encode_agrees(x.to(xdt), u.to(udt), 2, block)
 
 
 @pytest.mark.cuda
@@ -293,6 +347,57 @@ def test_squant_decode_and_apply_kernels_match_plain(cuda_device, shape,
     assert out.dtype == dtype and new.dtype == dtype
     assert torch.equal(out, tsq.squant_decode_plain(q, sc, dtype=dtype))
     assert torch.equal(new, tsq.dequant_apply_plain(w, q, sc, 0.01))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,block,offset", [
+    ((4096, 256), (256, 256), 0),           # 16 levels a thread
+    ((4104, 16), (8, 16), 0),               # 16 levels, the last warp partial
+    ((256, 24), (256, 8), 0),               # a block 8 wide: one a thread
+    ((6, 10), (3, 5), 0),
+    ((512, 256), (256, 256), 1)])           # w one element into its buffer
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_dequant_apply_kernel_paths(cuda_device, shape, block, offset, dtype):
+    """dequant_apply's vector path and its one-element path (a block width
+    or N not a multiple of 16, or a w not 16-byte aligned), bit for bit
+    against its plain version and over two launches."""
+    x, _, u = _rand(shape, 11 * sum(shape), cuda_device)
+    q, sc = tsq.squant_encode(x, u, s=3, block=block)
+    n = shape[0] * shape[1]
+    buf = torch.randn(n + offset, device=cuda_device).to(dtype)
+    w = buf[offset:].view(shape)
+    before = tsq.dequant_apply.launches
+    out = tsq.dequant_apply(w, q, sc, 0.01, block=block)
+    torch.cuda.synchronize()
+    assert tsq.dequant_apply.launches == before + 1
+    assert out.dtype == dtype
+    assert torch.equal(out, tsq.dequant_apply_plain(w, q, sc, 0.01,
+                                                    block=block))
+    assert torch.equal(tsq.dequant_apply(w, q, sc, 0.01, block=block), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,n,d,strided", [
+    ((128,), 20, 40, True),                 # the round's server sum
+    ((128,), 20, 1, False),                 # the sweep's bit meter
+    ((3,), 33, 256, False), ((), 6, 10, False),
+    ((2,), 8, 5000, True)])                 # one thread an output
+def test_worker_sum_kernel_matches_plain(cuda_device, lead, n, d, strided):
+    """The worker sum (ring_sum.cu's loop on float32 rows) bit for bit
+    against its plain loop, on the round's [M, N, d] layout (handed to the
+    kernel as its [N, M, d] view) and on a view whose last axis is strided
+    (the wrapper makes it contiguous), over two launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + d)
+    x = torch.randn(lead + (n, d), generator=gen, device=cuda_device)
+    if strided:
+        x = x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    before = trs.worker_sum.launches
+    out = trs.worker_sum(x)
+    torch.cuda.synchronize()
+    assert trs.worker_sum.launches == before + 1
+    assert out.shape == lead + (d,)
+    assert torch.equal(out, trs.worker_sum_plain(x))
+    assert torch.equal(trs.worker_sum(x), out)
 
 
 @pytest.mark.cuda

@@ -168,6 +168,82 @@ def test_tree_memory_update_matches_reference():
                                    rtol=1e-6)
 
 
+def _to_bf16(a) -> torch.Tensor:
+    """A JAX bf16 array as a torch bf16 tensor (exact, through f32)."""
+    return torch.tensor(np.asarray(jnp.asarray(a).astype(jnp.float32))).to(
+        torch.bfloat16)
+
+
+def _bf16_pair(a: np.ndarray):
+    j = jnp.asarray(a).astype(jnp.bfloat16)
+    return j, _to_bf16(j)
+
+
+def assert_bf16_update_close(dt, ht, h, dj, hj, agree):
+    """bf16 bars of the fused uplink against the interpreted reference (see
+    tests/test_torch_kernels.py): where the levels agree, delta_hat to two
+    bf16 ulps (the scales agree to rtol 3e-3, and the bf16 rounding of the
+    scale can move by an ulp) and h_new within two bf16 ulps of its terms
+    |h| + |alpha * delta_hat|."""
+    dj = np.asarray(dj.astype(jnp.float32))
+    hj = np.asarray(hj.astype(jnp.float32))
+    d, hn = dt.float().numpy(), ht.float().numpy()
+    np.testing.assert_allclose(d[agree], dj[agree], rtol=2.0 ** -6, atol=0)
+    bound = 2.0 ** -6 * (np.abs(h.float().numpy()) + np.abs(0.5 * dj))
+    assert (np.abs(hn - hj) <= bound)[agree].all()
+
+
+@pytest.mark.parametrize("shape", [(500, 300), (7,), (33, 65)])
+def test_memory_update_bf16_matches_reference(shape):
+    """C1: the fused uplink on bf16 g and h, u drawn in bf16 as the
+    reference draws it (replayed), against ``repro.kernels.ops.
+    memory_update`` run interpreted: delta_hat and h_new in bf16, scales
+    f32 to rtol 3e-3, levels off by at most 1 on fewer than 1e-3 of the
+    entries (the interpreted kernel keeps g - h in f32)."""
+    (gj, gt), (hj, ht) = (_bf16_pair(_normal(shape, 11)),
+                          _bf16_pair(_normal(shape, 12, 0.5)))
+    key = jax.random.PRNGKey(14)
+    dj, hnj, cj = jops.memory_update(key, gj, hj, 0.5, s=1)
+    packed, _ = jops._pack(jnp.zeros(shape, jnp.bfloat16), BLOCK)
+    u = _to_bf16(jax.random.uniform(key, packed.shape, dtype=jnp.bfloat16))
+    dt, hnt, ct = tops.memory_update(gt, ht, 0.5, u, s=1)
+    assert dt.dtype == hnt.dtype == torch.bfloat16 and dt.shape == shape
+    q, qr = ct.q.numpy().astype(np.int32), np.asarray(cj.q, np.int32)
+    mismatch = q != qr
+    assert mismatch.mean() < 1e-3 and np.abs(q - qr).max() <= 1
+    np.testing.assert_allclose(ct.scales.numpy(), np.asarray(cj.scales),
+                               rtol=3e-3)
+    agree = ~mismatch.reshape(-1)[:math.prod(shape)].reshape(shape)
+    assert_bf16_update_close(dt, hnt, ht, dj, hnj, agree)
+
+
+def test_tree_memory_update_bf16_matches_reference():
+    """tree_memory_update over a bf16 gradient tree and memory, per-leaf
+    bf16 uniforms replayed from the reference's key split."""
+    tree, key = _tree(15), jax.random.PRNGKey(16)
+    mem = {k: 0.5 * _normal(v.shape, 17 + i)
+           for i, (k, v) in enumerate(sorted(tree.items()))}
+    jt = {k: _bf16_pair(v) for k, v in tree.items()}
+    jm = {k: _bf16_pair(v) for k, v in mem.items()}
+    dj, hj = jops.tree_memory_update(key, {k: v[0] for k, v in jt.items()},
+                                     {k: v[0] for k, v in jm.items()}, 0.5,
+                                     s=1)
+    keys = jax.random.split(key, len(tree))
+    u = []
+    for k, name in zip(keys, sorted(tree)):
+        packed, _ = jops._pack(jnp.zeros(tree[name].shape, jnp.bfloat16),
+                               BLOCK)
+        u.append(_to_bf16(jax.random.uniform(k, packed.shape,
+                                             dtype=jnp.bfloat16)))
+    dt, ht = tops.tree_memory_update({k: v[1] for k, v in jt.items()},
+                                     {k: v[1] for k, v in jm.items()}, 0.5,
+                                     u, s=1)
+    for k in tree:
+        assert dt[k].dtype == ht[k].dtype == torch.bfloat16
+        assert_bf16_update_close(dt[k], ht[k], jm[k][1], dj[k], hj[k],
+                                 np.ones(tree[k].shape, bool))
+
+
 def test_tree_flatten_follows_jax_order():
     """A flat dict keyed "layer_00/w" flattens like the reference's nested
     dict; the rebuilt tree has the input's structure."""
@@ -243,9 +319,11 @@ def test_ops_device_and_dtype_rules():
         tops.encode(x.to("meta"), torch.zeros(256, 256, device="meta"))
     with pytest.raises(ValueError):              # u over the wrong shape
         tops.encode(x, torch.zeros(10))
-    with pytest.raises(TypeError):               # the fused uplink is f32
-        tops.memory_update(x.bfloat16(), x.bfloat16(), 0.5,
-                           generator=torch.Generator())
+    with pytest.raises(TypeError):               # g and h share a dtype
+        tops.memory_update(x.bfloat16(), x, 0.5, generator=torch.Generator())
+    dh, hn, _ = tops.memory_update(x.bfloat16(), x.bfloat16(), 0.5,
+                                   generator=torch.Generator(), s=2)
+    assert dh.dtype == hn.dtype == torch.bfloat16 and hn.shape == x.shape
     c, shape = tops.encode(x.bfloat16(), generator=torch.Generator(), s=2)
     assert tops.decode(c, shape, dtype=torch.bfloat16).dtype == \
         torch.bfloat16

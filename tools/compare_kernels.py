@@ -8,11 +8,14 @@ Each ``label=DIR`` names the root of a checkout (the parent is unpacked with
 ``git archive`` into a directory that ``.gitignore`` lists).  For each turn
 of ``--order`` it runs, in fresh processes:
 
-1. the kernel cases of fused_memory_update (B1), ring_sum (B2),
-   bucket_ring_sum (B4) and bucket_acc (B3, out of place and the ring's
-   hops) that this checkout's ``chip_smoke.py`` defines, with its case
-   functions and the kernels of DIR (built there, from DIR's sources):
-   device µs per launch from the profiler's CUDA trace, against the bound;
+1. the kernel cases of fused_memory_update (B1), ring_sum (B2) and its
+   worker_sum helper, bucket_ring_sum (B4), bucket_acc (B3, out of place
+   and the ring's hops), squant_encode (B5) and dequant_apply (B7) that
+   this checkout's ``chip_smoke.py`` defines, with its case functions and
+   the kernels of DIR (built there, from DIR's sources): device µs per
+   launch from the profiler's CUDA trace, against the bound.  A case a
+   checkout's port cannot run (bf16 in B1, the worker sum, before they
+   existed) is left out of that checkout's turns;
 2. unless ``--no-smoke``, DIR's own ``chip_smoke.py`` from DIR, whose log
    holds the path timings (µs per round per cell, per mesh, wide and ops
    step, the grid profile's device time).
@@ -31,8 +34,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def kernel_cases(src):
-    """Time this checkout's B1, B2, B4 and B3 cases with the kernels under
-    ``src``; returns a list of dicts."""
+    """Time this checkout's B1, B2, B4, B3, B5 and B7 cases and the worker
+    sum with the kernels under ``src``; returns a list of dicts."""
     sys.path.insert(0, src)
     sys.path.insert(1, ROOT)
     import torch
@@ -44,17 +47,43 @@ def kernel_cases(src):
             os.path.join(os.path.abspath(src), "repro_torch"):
         raise SystemExit(f"compare_kernels: imported {repro_torch.__file__}, "
                          f"not the port under {src}")
+    from repro_torch.kernels import fused_memory, ring_sum
+    bf16_fused = hasattr(fused_memory, "FLOATS")
+    worker_sum = hasattr(ring_sum, "worker_sum")
     dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
     out = []
     for i, (r, d) in enumerate(cs.FUSED_CASES):
         out.append(dict(kernel="fused_memory_update", block=[1, d],
                         **cs.fused_case(dev, r, d, i)))
+    for i, (r, d) in enumerate(cs.FUSED_BF16_CASES if bf16_fused else []):
+        out.append(dict(kernel="fused_memory_update", block=[1, d],
+                        **cs.fused_case(dev, r, d, 5 + i, bf16)))
     for i, sh in enumerate(cs.FUSED_TILE_CASES):
         out.append(dict(kernel="fused_memory_update",
                         **cs.fused_tile_case(dev, sh, 70 + i)))
+    if bf16_fused:
+        out.append(dict(kernel="fused_memory_update",
+                        **cs.fused_tile_case(dev, cs.MAIN_OPS, 73, bf16)))
     for i, (n, m, c, layout) in enumerate(cs.RING_CASES):
         out.append(dict(kernel="ring_sum",
                         **cs.ring_case(dev, n, m, c, layout, 10 + i)))
+    for i, sh in enumerate(cs.WSUM_CASES if worker_sum else []):
+        out.append(dict(kernel="worker_sum", **cs.wsum_case(dev, *sh,
+                                                           15 + i)))
+    # B5 on the ops shapes and one tile, B7 on the ops shapes and where N
+    # is not a multiple of 16
+    for i, sh in enumerate(cs.OPS_CASES + [cs.ONE_TILE]):
+        out.append(dict(kernel="squant_encode",
+                        **cs.encode_case(dev, sh, f32, f32, 40 + i)))
+    out.append(dict(kernel="squant_encode",
+                    **cs.encode_case(dev, cs.MAIN_OPS, bf16, bf16, 43)))
+    for i, sh in enumerate(cs.OPS_CASES):
+        for dt in (f32, bf16):
+            out.append(dict(kernel="dequant_apply",
+                            **cs.apply_case(dev, sh, dt, 60 + i)))
+    out.append(dict(kernel="dequant_apply", **cs.apply_case(
+        dev, cs.APPLY_NARROW[0], f32, 62, block=cs.APPLY_NARROW[1])))
     for i, sh in enumerate(cs.BSUM_CASES):
         out.append(dict(kernel="bucket_ring_sum",
                         **cs.bsum_case(dev, sh, 30 + i)))
@@ -101,6 +130,7 @@ def main():
                 extra = c.get("layout") or (
                     f"in {tuple(c['block'])}" if "block" in c else "") or (
                     f"hop {c['hop']}" if "hop" in c else "")
+                extra += f" {c['dtype']}" if "dtype" in c else ""
                 print(f"turn {turn} {label}: {c['kernel']} {c['shape']} "
                       f"{extra}: device {c['ms'] * 1e3:.3f} us "
                       f"({c['ms_from']}), bound {c['bound_ms'] * 1e3:.3f} "
