@@ -60,9 +60,38 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
    lr = 0.01) under ``torch.profiler``; the loss must fall, and every step
    must launch squant_encode and dequant_apply once per leaf (25 each).
 
-The simulator's path (phases 4 and 5), the mesh's (phases 7 and 8) and the
-compression API's (phase 10) are each driven with every launch count set to
-0 just before and read just after.
+11. fault kernels (after phase 3): fused_memory_update on the round's rows
+   [2560, 40] with NaN, +-Inf, -0.0, blown-up and overflowing rows and NaN
+   in h (bit for bit with the plain version on the rows with a non-finite
+   or zero norm, levels saturating to the int8 range where a NaN norm
+   sends them past it; NaN placement everywhere), and ring_sum on the
+   round's strided [20, 128, 40] view of corrupted payloads (levels over
+   the whole int8 range, NaN, +-Inf, -0.0, negative and overflowing
+   scales; bit for bit, NaN placement included);
+12. codecs (after the mesh kernels): tile_squant (tiles of 1024 and 32),
+   sparsify and topk on the card against the same codec on CPU tensors
+   (sparsify and topk bit for bit; tile_squant's scales to rtol 1e-6 and
+   its levels equal where the scales agree), each payload's bytes against
+   ``wire_bytes``;
+13. faults (after phase 6): ``experiments.fault_matrix`` (the zero-fault
+   identity bit for bit, scrub recovery, sentinel rollbacks with a backed
+   off step size, the bit-flip run on the fused wire finite),
+   ``exp5_faults`` (every final loss finite), and the Fig. 4 grid of
+   phase 5 under bit flips, scrubbing and the sentinel (``GRID_FAULTS``),
+   with one launch of each fused kernel per round of every squant-uplink
+   variant;
+14. figures: ``table3_gamma_max`` (the theory's gamma_max converges for
+   sgd, qsgd and artemis) and ``thm3_variance_lower_bound`` (q = 0.25
+   saturates above q = 1);
+15. resume: the faulted grid (640 cells, 100 rounds) checkpointed every 50
+   rounds, rewound to its first snapshot and resumed, bit for bit with
+   the uninterrupted run; the time of one save of its snapshot; then the
+   profile of phase 6 again under ``GRID_FAULTS``.
+
+The simulator's path (phases 4 and 5), the fault path (phases 13 to 15),
+the mesh's (phases 7 and 8) and the compression API's (phase 10) are each
+driven with every launch count set to 0 just before and read just after;
+the kernels line adds the simulator's and the fault path's launches.
 
 It prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -128,6 +157,21 @@ FUSED_TILE_CASES = [ONE_TILE] + OPS_CASES
 # dequant_apply where N is not a multiple of 16: one element a thread
 APPLY_NARROW = ((4096, 248), (256, 8))
 OPS_STEPS, OPS_S, OPS_LR, OPS_ALPHA = 10, 1, 0.01, 0.5
+
+# the fault path: the Fig. 4 grid again, every variant under bit flips,
+# scrubbing and the sentinel; the resume phase's checkpointed faulted grid
+# (all 640 cells, 100 rounds, a snapshot every 50)
+GRID_FAULTS = dict(bitflip_rate=0.01, scrub=True, sentinel=1e6)
+RESUME_ITERS, RESUME_EVERY = 100, 50
+# the codecs phase: (codec, kwargs, shape) on the card against the CPU;
+# [128, 20, 40] is a grid variant's uplink, [20, 5000] a longer message
+CODEC_CASES = [("tile_squant", {"s": 1, "tile": 1024}, (20, 5000)),
+               ("tile_squant", {"s": 1, "tile": 32}, (20, 5000)),
+               ("tile_squant", {"s": 1, "tile": 32}, (B, N, 40)),
+               ("sparsify", {"q": 0.25}, (B, N, 40)),
+               ("sparsify", {"q": 0.5}, (20, 5000)),
+               ("topk", {"frac": 0.1}, (B, N, 40)),
+               ("topk", {"frac": 0.1}, (20, 5000))]
 
 
 class SmokeFailure(Exception):
@@ -660,22 +704,29 @@ def _fmt_share(busy):
     return "not measured" if busy is None else f"{busy:.4f}"
 
 
-def profile_phase(dev):
-    """Device-busy share over 20 rounds of one variant's 128 grid cells."""
+def profile_phase(dev, fault_config=None):
+    """Device-busy share over 20 rounds of one variant's 128 grid cells
+    (under ``fault_config``, a dict of FaultConfig fields, if given)."""
+    import dataclasses
     import torch
     from repro_torch.core import artemis as art
+    from repro_torch.core import faults
     from repro_torch.core import federated as fed
     from repro_torch.core import sweep as sw
     prob = fed.make_clustered_problem(5, n_workers=20, n_per=300, d=40,
                                       device=dev)
     cfg = art.variant_config("artemis", 40, 20)
+    if fault_config is not None:
+        cfg = dataclasses.replace(
+            cfg, faults=faults.FaultConfig(**fault_config))
     gammas = [0.5 / prob.smoothness() * m for m in GRID_MULTS]
     kw = dict(batch=16, eval_every=5, backend="cuda", device=dev)
     sw.run_sweep(prob, [cfg], gammas, GRID_SEEDS, 10, **kw)   # warm-up
     torch.cuda.synchronize()
     wall_us, dev_us, busy, n_ops, top = profiled(
         lambda: sw.run_sweep(prob, [cfg], gammas, GRID_SEEDS, 20, **kw))
-    log(f"grid profile: 20 rounds x 128 cells, wall {wall_us:.0f} us, "
+    label = "grid profile" + (" (faulted)" if fault_config else "")
+    log(f"{label}: 20 rounds x 128 cells, wall {wall_us:.0f} us, "
         f"device busy {dev_us:.0f} us, share {_fmt_share(busy)}, "
         f"{n_ops / 20:.1f} device ops per round")
     log_top(top)
@@ -1109,6 +1160,282 @@ def ops_phase(dev):
             "packed": packed, "wire_bytes": wire, "losses": losses}
 
 
+def _same_values(a, b):
+    """Bit for bit, NaN placement included (any NaN bits count as NaN; a
+    -0.0 differs from a 0.0)."""
+    import torch
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    ints = {torch.float32: torch.int32, torch.int8: torch.int8}
+    return torch.equal(a.view(ints[a.dtype])[~nan],
+                       b.view(ints[b.dtype])[~nan])
+
+
+def fault_fused_case(dev, seed):
+    """B1 on the round's rows [2560, 40] where faults reach it: NaN, +-Inf,
+    -0.0, blown-up (1e15) and overflowing (3e38) rows of g, NaN in h (an
+    unscrubbed run's memory).  Rows with a non-finite or zero norm must
+    match the plain version bit for bit (a zero scale, zero levels, h_new
+    = h + 0 with its NaNs); the others keep B1's usual bar (the norm's
+    order differs); NaN placement must match everywhere."""
+    import torch
+    from repro_torch.kernels.fused_memory import (
+        fused_memory_update, fused_memory_update_plain)
+    rows, d = MAIN_FUSED
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(rows, d, generator=gen, device=dev)
+    h = torch.randn(rows, d, generator=gen, device=dev)
+    u = torch.rand(rows, d, generator=gen, device=dev)
+    nan, inf = float("nan"), float("inf")
+    g[0] = nan
+    g[1, 7] = nan
+    g[2, 3], g[3, 5] = inf, -inf
+    g[4], h[4] = -0.0, -0.0
+    g[5:40] *= 1e15
+    g[40, :3] = 3e38
+    h[41, 11] = nan
+    h[42] = nan
+    # a NaN norm with blown-up entries: safe = 1 sends r past int8, which
+    # saturates as XLA converts
+    g[43] *= 1e15
+    h[43, 0] = nan
+    out = fused_memory_update(g, h, u, 0.25, s=1, block=(1, d))
+    plain = fused_memory_update_plain(g, h, u, 0.25, s=1, block=(1, d))
+    torch.cuda.synchronize()
+    (q, sc, hn), (qp, scp, hnp) = out, plain
+    check(torch.equal(torch.isnan(hn), torch.isnan(hnp)),
+          "fault B1: NaN placement of h_new differs")
+    special = ~torch.isfinite((g - h).pow(2).sum(-1)) | (scp[:, 0] == 0)
+    check(int(special.sum()) >= 8, "fault B1: the special rows are missing")
+    check(set(q[43].unique().tolist()) <= {-128, 0, 127}
+          and set(qp[43].unique().tolist()) <= {-128, 0, 127},
+          "fault B1: the NaN-norm row's levels did not saturate")
+    for name, a, b in (("q", q, qp), ("scales", sc, scp), ("h_new", hn, hnp)):
+        check(_same_values(a[special], b[special]),
+              f"fault B1: {name} differs on the non-finite or zero rows")
+    finite = ~special
+    err, mismatch = _fused_agrees(
+        "fault B1 finite rows", (q[finite], sc[finite], hn[finite]),
+        (qp[finite], scp[finite], hnp[finite]), (1, d))
+    return dict(shape=[rows, d], special_rows=int(special.sum()),
+                nan_h_new=int(torch.isnan(hn).sum()), max_abs_err=err,
+                level_mismatch=mismatch)
+
+
+def fault_ring_case(dev, seed):
+    """B2 on the round's strided [20, 128, 40] view of corrupted payloads:
+    levels over the whole int8 range (-128 included) and scales that are
+    NaN, +-Inf, -0.0, negative or 3e38 (whose products overflow).  Bit for
+    bit with the plain version, NaN placement included."""
+    import torch
+    from repro_torch.kernels.ring_sum import ring_sum, ring_sum_plain
+    n, m, c = MAIN_RING
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randint(-128, 128, (m, n, c), generator=gen, device=dev,
+                      dtype=torch.int8)
+    q[0, :, 0] = -128
+    q[1, 3, :] = 0
+    sc = torch.rand(m, n, 1, generator=gen, device=dev)
+    sc[0, 0], sc[1, 3], sc[2, 4] = float("nan"), float("inf"), -0.0
+    sc[3, 5], sc[4, 6], sc[5, :2] = -float("inf"), -2.5, 3e38
+    qt, st = q.transpose(0, 1), sc.transpose(0, 1)
+    out = ring_sum(qt, st)
+    ref = ring_sum_plain(qt, st)
+    torch.cuda.synchronize()
+    check(_same_values(out, ref),
+          "fault B2: differs from its plain version on corrupted payloads")
+    check(bool(torch.isnan(out).any()) and bool(torch.isinf(out).any()),
+          "fault B2: the corrupted cells did not reach the sum")
+    return dict(shape=[n, m, c], nan_out=int(torch.isnan(out).sum()),
+                inf_out=int(torch.isinf(out).sum()), max_abs_err=0.0)
+
+
+def fault_kernel_phase(dev):
+    fused, ring = fault_fused_case(dev, 90), fault_ring_case(dev, 91)
+    log(f"fault kernels: fused_memory_update {fused['shape']}: "
+        f"{fused['special_rows']} non-finite or zero rows bit for bit, "
+        f"{fused['nan_h_new']} NaN in h_new in place, finite rows "
+        f"level mismatch {fused['level_mismatch']:.3g}; ring_sum "
+        f"{ring['shape']} strided: bit for bit with {ring['nan_out']} NaN "
+        f"and {ring['inf_out']} Inf sums")
+    return fused, ring
+
+
+def codec_phase(dev):
+    """tile_squant, sparsify and topk on the card against the same codec on
+    CPU tensors, and each payload's bytes against ``wire_bytes``."""
+    import torch
+    from repro_torch.core import codec as wire
+    names = {torch.int8: "s8", torch.int32: "s32", torch.float32: "f32"}
+    out = []
+    for i, (name, kw, shape) in enumerate(CODEC_CASES):
+        codec = wire.make_codec(name, shape[-1], **kw)
+        gen = torch.Generator().manual_seed(80 + i)
+        x, u = torch.randn(shape, generator=gen), torch.rand(shape,
+                                                             generator=gen)
+        cpu = codec.encode(x, u)
+        xd, ud = x.to(dev), u.to(dev)
+        card = codec.encode(xd, ud)
+        dec = codec.decode(card)
+        torch.cuda.synchronize()
+        label = f"codec {codec.name} {list(shape)}"
+        check(card.keys() == cpu.keys(), f"{label}: leaves {card.keys()}")
+        if name == "tile_squant":
+            sc, scc = card["scales"].cpu(), cpu["scales"]
+            check(torch.allclose(sc, scc, rtol=1e-6, atol=0),
+                  f"{label}: scales differ beyond rtol 1e-6")
+            same = (sc == scc).expand(card["levels"].shape)
+            diff = (card["levels"].cpu().to(torch.int32)
+                    - cpu["levels"].to(torch.int32)).abs()
+            check(int(diff[same].sum()) == 0 and int(diff.max()) <= 1,
+                  f"{label}: levels differ where the scales agree")
+            mismatch = int((diff != 0).sum())
+        else:
+            for k in cpu.keys():
+                check(torch.equal(card[k].cpu(), cpu[k]),
+                      f"{label}: leaf {k} differs from the CPU's")
+            check(torch.equal(dec.cpu(), codec.decode(cpu)),
+                  f"{label}: decode differs from the CPU's")
+            mismatch = 0
+        emitted = {}
+        for t in card.leaves():
+            key = names[t.dtype]
+            emitted[key] = emitted.get(key, 0) + t.numel() * t.element_size()
+        check(emitted == codec.wire_bytes(shape),
+              f"{label}: emits {emitted}, wire_bytes says "
+              f"{codec.wire_bytes(shape)}")
+        us = call_ms(lambda: codec.decode(codec.encode(xd, ud)), runs=5) * 1e3
+        out.append(dict(codec=codec.name, shape=list(shape),
+                        wire_bytes=emitted, level_mismatch=mismatch,
+                        round_trip_us=us))
+        log(f"{label}: agrees with the CPU (level mismatch {mismatch}), "
+            f"wire bytes {emitted}, round trip {us:.1f} us per call")
+    return out
+
+
+def fault_phase(dev):
+    """The fault model on the card: the recovery matrix, exp5 and the
+    Fig. 4 grid under bit flips, scrubbing and the sentinel."""
+    from repro_torch import experiments as ex
+    from repro_torch.core import artemis as art
+    from repro_torch.core import faults
+    from repro_torch.kernels.fused_memory import fused_memory_update
+    from repro_torch.kernels.ring_sum import ring_sum
+    t0 = time.perf_counter()
+    fm = ex.fault_matrix(device=dev)
+    for name in ("identity", "scrub", "sentinel", "bitflip"):
+        check(fm[name], f"fault matrix: the {name} check fails: {fm}")
+    log(f"faults matrix: identity, scrub, sentinel and bitflip hold "
+        f"({time.perf_counter() - t0:.1f} s): {json.dumps(fm)}")
+    t0 = time.perf_counter()
+    e5 = ex.exp5_faults(device=dev)
+    check(e5["finite"], f"exp5: a final loss is not finite: {e5}")
+    log(f"faults exp5 ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(e5, default=float)}")
+    fc = faults.FaultConfig(**GRID_FAULTS)
+    cfgs = [art.variant_config(x, 40, 20)
+            for x in ("sgd", "qsgd", "diana", "biqsgd", "artemis")]
+    f0, r0 = fused_memory_update.launches, ring_sum.launches
+    t0 = time.perf_counter()
+    res = ex.fig4_bits(device=dev, gamma_mults=GRID_MULTS, seeds=GRID_SEEDS,
+                       fault_config=fc)
+    res["seconds"] = time.perf_counter() - t0
+    check(res["cells"] == 640, f"faulted grid: {res['cells']} cells")
+    check(res["finite"], "faulted grid: non-finite losses")
+    want = expected_launches(cfgs, 600)
+    got = (fused_memory_update.launches - f0, ring_sum.launches - r0)
+    check(got == (want, want), f"faulted grid: kernel launches {got}, "
+                               f"expected {want} each")
+    res["launches"] = got[0]
+    log(f"faults grid ({GRID_FAULTS}): {json.dumps(res, default=float)}")
+    return {"matrix": fm, "exp5": e5, "grid": res}
+
+
+def figures_phase(dev):
+    """Table 3 and Thm 3 on the card."""
+    from repro_torch import experiments as ex
+    t0 = time.perf_counter()
+    t3 = ex.table3_gamma_max(device=dev)
+    for v, r in t3["variants"].items():
+        check(r["converges"], f"table3: {v} does not converge at the "
+                              f"theory's gamma_max: {r}")
+    t3["seconds"] = time.perf_counter() - t0
+    log(f"figures table3: {json.dumps(t3, default=float)}")
+    t0 = time.perf_counter()
+    th = ex.thm3_variance_lower_bound(device=dev)
+    sat = th["saturation"]
+    check(sat[0.25] > sat[1.0], f"thm3: q = 0.25 does not saturate above "
+                                f"q = 1: {sat}")
+    th["seconds"] = time.perf_counter() - t0
+    log(f"figures thm3: {json.dumps(th, default=float)}")
+    return {"table3": t3, "thm3": th}
+
+
+def resume_phase(dev):
+    """A checkpointed faulted grid (the Fig. 4 problem, 640 cells), rewound
+    to its first snapshot and resumed, against the uninterrupted run; and
+    the time of one save of the grid's snapshot."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.core import artemis as art
+    from repro_torch.core import faults
+    from repro_torch.core import federated as fed
+    from repro_torch.core import sweep as sw
+    prob = fed.make_clustered_problem(5, n_workers=20, n_per=300, d=40,
+                                      device=dev)
+    fc = faults.FaultConfig(**GRID_FAULTS)
+    cfgs = [dataclasses.replace(art.variant_config(x, 40, 20), faults=fc)
+            for x in ("sgd", "qsgd", "diana", "biqsgd", "artemis")]
+    gammas = [0.5 / prob.smoothness() * m for m in GRID_MULTS]
+    ckdir = os.path.join(ROOT, "build", "chip_smoke_checkpoint")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    kw = dict(batch=16, eval_every=5, backend="cuda", device=dev,
+              checkpoint_dir=ckdir, checkpoint_every=RESUME_EVERY)
+    try:
+        t0 = time.perf_counter()
+        full = sw.run_sweep(prob, cfgs, gammas, GRID_SEEDS, RESUME_ITERS,
+                            **kw)
+        full_s = time.perf_counter() - t0
+        half = RESUME_EVERY // 5
+        with open(os.path.join(ckdir, "LATEST"), "w") as f:
+            f.write(str(half))
+        t0 = time.perf_counter()
+        res = sw.run_sweep(prob, cfgs, gammas, GRID_SEEDS, RESUME_ITERS,
+                           resume=True, **kw)
+        resumed_s = time.perf_counter() - t0
+        for f in ("losses", "bits", "dists", "w_final", "w_avg",
+                  "w_tail_avg", "rollbacks", "gamma_scale"):
+            check(np.array_equal(getattr(full, f), getattr(res, f),
+                                 equal_nan=True),
+                  f"resume: {f} differs from the uninterrupted run")
+        # one save of the same snapshot, from the card
+        step = checkpointer.latest_step(ckdir)
+        with np.load(os.path.join(ckdir, f"step_{step:08d}", "arrays.npz"),
+                     allow_pickle=False) as data:
+            tree = {k.replace("/", "."): torch.from_numpy(data[k]).to(dev)
+                    for k in data.files}
+        nbytes = sum(t.numel() * t.element_size() for t in tree.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpointer.save(os.path.join(ckdir, "timed"), step, tree)
+        save_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    out = {"cells": int(full.losses[..., 0].size), "iters": RESUME_ITERS,
+           "every": RESUME_EVERY, "uninterrupted_s": full_s,
+           "resumed_s": resumed_s, "save_ms": save_ms,
+           "snapshot_bytes": nbytes,
+           "rollbacks": int(full.rollbacks.sum())}
+    log(f"resume: bit for bit after a resume at round {RESUME_EVERY} of "
+        f"{RESUME_ITERS}; one save {save_ms:.1f} ms for {nbytes} bytes: "
+        f"{json.dumps(out)}")
+    return out
+
+
 def kernel_line(cases, launches):
     """``cases`` and ``launches`` map each kernel's name to its kernel-phase
     cases and to its launches on its path's run."""
@@ -1171,14 +1498,29 @@ def main():
     card = card_identity()
     build_phase()
     fused, ring, wsum = kernel_phase(dev)
+    fault_fused, fault_ring = fault_kernel_phase(dev)
     acc, bsum = mesh_kernel_phase(dev)
+    codec_phase(dev)
     reset_launches()                    # the simulator's path starts here
     slice_res = slice_phase(dev)
     grid_res = grid_phase(dev)
-    launches = {"fused_memory_update": fused_memory_update.launches,
-                "ring_sum": ring_sum.launches,
-                "worker_sum": worker_sum.launches}
-    profile_phase(dev)
+    sim = {"fused_memory_update": fused_memory_update.launches,
+           "ring_sum": ring_sum.launches, "worker_sum": worker_sum.launches}
+    profile_clean = profile_phase(dev)
+    reset_launches()                    # the fault path starts here
+    t_fault = time.perf_counter()
+    fault_res = fault_phase(dev)
+    figures_phase(dev)
+    resume_res = resume_phase(dev)
+    flt = {"fused_memory_update": fused_memory_update.launches,
+           "ring_sum": ring_sum.launches, "worker_sum": worker_sum.launches}
+    log(f"fault path launches: {json.dumps(flt)}")
+    check(min(flt.values()) > 0, f"the fault path launched a kernel 0 "
+                                 f"times: {flt}")
+    profile_fault = profile_phase(dev, GRID_FAULTS)
+    fault_secs = time.perf_counter() - t_fault
+    launches = {k: sim[k] + flt[k] for k in sim}
+    by_path = {k: {"simulator": sim[k], "faults": flt[k]} for k in sim}
     reset_launches()                    # the mesh's path starts here
     t_mesh = time.perf_counter()
     mesh_res = mesh_phase(dev)
@@ -1204,20 +1546,37 @@ def main():
         log(f"us per round per cell, {name}: "
             f"{slice_res[name]['us_per_round_cell']:.2f}")
     log(f"us per round per cell, grid (640 cells): "
-        f"{grid_res['us_per_round_cell']:.3f}")
+        f"{grid_res['us_per_round_cell']:.3f}; faulted grid "
+        f"{fault_res['grid']['us_per_round_cell']:.3f}")
+    log(f"device ops per round, grid profile: "
+        f"{profile_clean['device_ops_per_round']:.1f}; faulted "
+        f"{profile_fault['device_ops_per_round']:.1f}; busy share "
+        f"{_fmt_share(profile_clean['busy_share'])} and "
+        f"{_fmt_share(profile_fault['busy_share'])}")
+    log(f"exp5 final losses {fault_res['exp5']['final_loss']}, rollbacks "
+        f"{fault_res['exp5']['rollbacks']}; one grid save "
+        f"{resume_res['save_ms']:.1f} ms")
     for name, res in mesh_res.items():
         log(f"us per step, mesh {name}: {res['us_per_step']:.1f}")
     log(f"us per step, wide artemis: {wide_res['us_per_step']:.1f} "
         f"(busy share {wide_res['busy_share']})")
     log(f"us per step, ops compressed sgd: {ops_res['us_per_step']:.1f} "
         f"(busy share {ops_res['busy_share']})")
-    log(f"mesh phases {mesh_secs:.1f} s; ops phases {ops_secs:.1f} s; total "
+    log(f"fault phases {fault_secs:.1f} s; mesh phases {mesh_secs:.1f} s; "
+        f"ops phases {ops_secs:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(kernel_line(
+    line = kernel_line(
         {"fused_memory_update": fused + fused_tiles, "ring_sum": ring,
          "worker_sum": wsum,
          "bucket_acc": acc, "bucket_ring_sum": bsum, "squant_encode": enc,
-         "squant_decode": dec, "dequant_apply": app}, launches)))
+         "squant_decode": dec, "dequant_apply": app}, launches)
+    for entry in line["kernels"]:
+        if entry["name"] in by_path:
+            entry["launches_by_path"] = by_path[entry["name"]]
+        entry["fault_cases"] = {"fused_memory_update": [fault_fused],
+                                "ring_sum": [fault_ring]}.get(
+                                    entry["name"], [])
+    print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 The JAX package ``repro`` is the reference this package is held against; the
 port imports nothing from it.  Its layout mirrors ``repro``: ``core/`` holds
 the codecs, the Artemis round, the federated problems, the per-round noise
-source and the grid sweep; ``kernels/`` holds the hand-written CUDA kernels
-(sources under ``csrc/``) beside their plain PyTorch versions.
+source, the fault model and the grid sweep; ``checkpoint/`` the
+checkpointer of resumable sweeps; ``kernels/`` the hand-written CUDA
+kernels (sources under ``csrc/``) beside their plain PyTorch versions.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -30,18 +30,31 @@ on the CPU.
 ``backend="cuda"`` routes codecs of the ``squant_rows`` family through the
 fused kernels (``kernels/fused_memory.py`` then ``kernels/ring_sum.py``) and
 the rest through the dense path, as the reference's ``"pallas"`` backend
-does.  Faults are not ported yet (see ROADMAP.md).
+does.
+
+Wire faults (``cfg.faults``, ``core/faults.py``): when the config corrupts
+or scrubs the uplink, the payload each worker sends is corrupted (only
+active workers send), validated and scrubbed by the server, and the
+worker's memory, its error feedback and the server's sum follow the
+payload the server accepted.  The fused path does this on the kernel's own
+output buffers: B1 writes the levels and scales, the fault operators act on
+them as a ``row_squant`` payload, and B2 sums what survived.  The flip
+draws enter as tensors (``flips``), one (bit, uniform) pair per payload
+leaf in sorted-key order (``uplink_leaves``).  A config without wire faults
+runs the code it ran before faults existed.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import default_device
 from repro_torch.core import codec as wire
+from repro_torch.core import compression as comp
+from repro_torch.core import faults
 from repro_torch.kernels.fused_memory import fused_memory_update
 from repro_torch.kernels.ring_sum import ring_sum, worker_sum
 
@@ -61,12 +74,16 @@ class ArtemisConfig:
     pp_mode: str = "pp2"           # 'pp1' | 'pp2'
     error_feedback: bool = False   # Dore-like error feedback
     backend: str = "dense"         # 'dense' | 'cuda' (fused uplink kernels)
-    faults: Optional[Any] = None   # not ported yet: must stay None
+    faults: Optional[faults.FaultConfig] = None  # injection + defenses
 
     def codecs(self) -> Tuple[wire.Codec, wire.Codec]:
         c_up = wire.make_codec(self.up, self.dim, **dict(self.up_kwargs))
         c_dwn = wire.make_codec(self.dwn, self.dim, **dict(self.dwn_kwargs))
         return c_up, c_dwn
+
+    def compressors(self) -> Tuple[comp.Compressor, comp.Compressor]:
+        c_up, c_dwn = self.codecs()
+        return comp.from_codec(c_up), comp.from_codec(c_dwn)
 
     def resolved_alpha(self) -> float:
         if self.alpha is not None:
@@ -75,13 +92,6 @@ class ArtemisConfig:
         if c_up.omega == 0.0:
             return 0.0
         return 1.0 / (2.0 * (c_up.omega + 1.0))
-
-
-def check_supported(cfg: ArtemisConfig) -> None:
-    """Raise for the parts of a config the port does not run yet."""
-    if cfg.faults is not None:
-        raise NotImplementedError(
-            "fault injection is not ported yet; see ROADMAP.md")
 
 
 @dataclasses.dataclass
@@ -129,28 +139,75 @@ def variant_config(variant: str, dim: int, n_workers: int, s: int = 1,
                          **table[variant])
 
 
-def _uplink_dense(cfg, c_up, state, grads, u_up, active, alpha):
-    """Reference uplink: the codec round-trip on every worker row."""
+def _uplink_dense(cfg, c_up, state, grads, u_up, active, alpha, fc, flips):
+    """Reference uplink: the codec round-trip on every worker row.  Under
+    wire faults the payload itself (levels, indices, scales) is corrupted
+    and validated, not the decoded value."""
     delta = grads - state.h
     if cfg.error_feedback:
         delta = delta + state.e
-    delta_hat = c_up(delta, u_up)
-    if cfg.error_feedback:
-        new_e = state.e + (grads - state.h) - delta_hat
-        new_e = active * new_e + (1 - active) * state.e
-    else:
-        new_e = state.e
-    # only active workers send and update their memory
-    delta_hat = active * delta_hat
-    new_h = state.h + alpha * delta_hat
-    return delta_hat, new_h, new_e, worker_sum(delta_hat)
+    if not fc.wire_faults:
+        delta_hat = c_up(delta, u_up)
+        if cfg.error_feedback:
+            new_e = state.e + (grads - state.h) - delta_hat
+            new_e = active * new_e + (1 - active) * state.e
+        else:
+            new_e = state.e
+        # only active workers send and update their memory
+        delta_hat = active * delta_hat
+        new_h = state.h + alpha * delta_hat
+        return delta_hat, new_h, new_e, worker_sum(delta_hat), None
+    payload, ok = _faulted_wire(c_up, c_up.encode(delta, u_up), active, fc,
+                                flips)
+    sent = c_up.decode(payload)
+    sent = faults.nan_to_zero(sent) * ok if fc.scrub else sent * active
+    new_e = _accepted_e(cfg, state, grads, sent, ok)
+    # the fault model corrupts the encoder's output buffer, so the worker
+    # memory tracks exactly what the server accepted (scrubbed: nothing)
+    new_h = state.h + alpha * sent
+    return sent, new_h, new_e, worker_sum(sent), _scrubbed(active, ok)
 
 
-def _uplink_fused(cfg, c_up, state, grads, u_up, active, alpha):
+def _faulted_wire(codec, payload, active, fc, flips):
+    """Corrupt what active workers sent, then let the server validate it:
+    returns the payload the server keeps and ``ok [..., N, 1]``, the
+    workers whose payload it accepts (a failed checksum counts as
+    inactive)."""
+    if fc.bitflip_rate > 0.0:
+        if flips is None:
+            raise ValueError("bit flips need their draws: pass flips")
+        payload = faults.corrupt_payload(flips, payload, fc.bitflip_rate,
+                                         only=active[..., 0])
+    ok = active
+    if fc.scrub:
+        valid = codec.validate(payload)             # [..., N]
+        ok = active * valid[..., None]
+        payload = faults.scrub_payload(payload, valid)
+    return payload, ok
+
+
+def _accepted_e(cfg, state, grads, sent, ok):
+    """The error-feedback buffers after a faulted round: updated from what
+    the server accepted, unchanged for the others."""
+    if not cfg.error_feedback:
+        return state.e
+    new_e = state.e + (grads - state.h) - sent
+    return ok * new_e + (1 - ok) * state.e
+
+
+def _scrubbed(active, ok):
+    """Payloads the server dropped this round, per cell."""
+    return active[..., 0].sum(-1) - ok[..., 0].sum(-1)
+
+
+def _uplink_fused(cfg, c_up, state, grads, u_up, active, alpha, fc, flips):
     """Fused uplink for the ``squant_rows`` family: worker encode + memory
     update in one kernel over all [cells x workers] rows, then the server's
     dequant-accumulate in one kernel over all cells.  Error feedback encodes
-    ``g + e - h``; its buffer update stays outside the kernels."""
+    ``g + e - h``; its buffer update stays outside the kernels.  Under wire
+    faults the kernel's levels and scales are the payload that is corrupted
+    and scrubbed, and the kernel's own memory update is discarded for one
+    from the accepted payload."""
     *lead, n, d = grads.shape
     m = grads.numel() // (n * d)                    # cells
     s = int(cfg.up_kwargs.get("s", 1))
@@ -161,6 +218,9 @@ def _uplink_fused(cfg, c_up, state, grads, u_up, active, alpha):
         u_up.reshape(m * n, d).contiguous(), alpha, s=s, block=(1, d))
     q = q.reshape(grads.shape)
     scales = scales.reshape(*lead, n, 1)
+    if fc.wire_faults:
+        return _faulted_fused(cfg, state, grads, q, scales, active, alpha,
+                              fc, flips, s)
     # inactive workers neither transmit nor touch their memory
     new_h = active * h_fused.reshape(grads.shape) + (1 - active) * state.h
     if cfg.error_feedback:
@@ -174,7 +234,50 @@ def _uplink_fused(cfg, c_up, state, grads, u_up, active, alpha):
     sum_hat = ring_sum(q.reshape(m, n, d).transpose(0, 1),
                        act_scales.reshape(m, n, 1).transpose(0, 1))
     delta_hat = q.to(grads.dtype) * act_scales
-    return delta_hat, new_h, new_e, sum_hat.reshape(*lead, d)
+    return delta_hat, new_h, new_e, sum_hat.reshape(*lead, d), None
+
+
+def _faulted_fused(cfg, state, grads, q, scales, active, alpha, fc, flips,
+                   s):
+    """The fused uplink's wire faults: B1's output buffers as a row_squant
+    payload (scale = norm / s, decode q * scale), corrupted and scrubbed,
+    then B2 sums ``scales * ok`` over the levels that arrived."""
+    *lead, n, d = grads.shape
+    m = grads.numel() // (n * d)
+    meta = wire.PayloadMeta("row_squant", tuple(grads.shape),
+                            str(grads.dtype), (("s", s),))
+    codec = wire.make_codec("row_squant", d, s=s)
+    payload, ok = _faulted_wire(
+        codec, wire.WirePayload({"levels": q, "scales": scales}, meta),
+        active, fc, flips)
+    q, scales = payload["levels"], payload["scales"]
+    act_scales = scales * ok                        # [..., N, 1]
+    sum_hat = ring_sum(q.reshape(m, n, d).transpose(0, 1),
+                       act_scales.reshape(m, n, 1).transpose(0, 1))
+    delta_hat = q.to(grads.dtype) * act_scales
+    new_e = _accepted_e(cfg, state, grads, delta_hat, ok)
+    # the worker memory tracks the accepted payload (see _uplink_dense)
+    new_h = state.h + alpha * delta_hat
+    return (delta_hat, new_h, new_e, sum_hat.reshape(*lead, d),
+            _scrubbed(active, ok))
+
+
+def uplink_leaves(cfg: ArtemisConfig,
+                  backend: Optional[str] = None) -> Tuple:
+    """The uplink payload's leaves of one cell, in sorted-key order, as the
+    noise sources take them for the wire flips: ((shape, flipped-bit
+    range), ...).  The fused path's payload is B1's row_squant levels and
+    scales; the dense path's is the codec's."""
+    n, d = cfg.n_workers, cfg.dim
+    c_up, _ = cfg.codecs()
+    backend = cfg.backend if backend is None else backend
+    if backend == "cuda" and c_up.fused_uplink == "squant_rows":
+        c_up = wire.make_codec("row_squant", d,
+                               s=int(cfg.up_kwargs.get("s", 1)))
+    z = torch.zeros(n, d)
+    payload = c_up.encode(z, z)
+    return tuple((tuple(t.shape), faults.flip_bits(t.dtype))
+                 for t in payload.leaves())
 
 
 def _worker_mean(x: torch.Tensor) -> torch.Tensor:
@@ -186,7 +289,8 @@ def _worker_mean(x: torch.Tensor) -> torch.Tensor:
 def artemis_round(cfg: ArtemisConfig, state: ArtemisState,
                   grads: torch.Tensor, u_up: torch.Tensor,
                   u_dwn: torch.Tensor, active: Optional[torch.Tensor] = None,
-                  backend: Optional[str] = None):
+                  backend: Optional[str] = None,
+                  flips: Optional[Sequence] = None):
     """One communication round.
 
     Args:
@@ -195,10 +299,12 @@ def artemis_round(cfg: ArtemisConfig, state: ArtemisState,
       u_dwn:  [..., d] downlink uniforms.
       active: optional {0, 1} float mask [..., N]; default all active.
       backend: 'dense' or 'cuda'; default ``cfg.backend``.
+      flips:  the wire flips' draws when ``cfg.faults`` flips bits: one
+        (bit int32, uniform) pair per uplink payload leaf in sorted-key
+        order (``uplink_leaves``), each of the leaf's size.
 
     Returns (omega [..., d], next ArtemisState, stats dict of [...] tensors).
     """
-    check_supported(cfg)
     c_up, c_dwn = cfg.codecs()
     alpha = cfg.resolved_alpha()
     n, d = cfg.n_workers, cfg.dim
@@ -216,8 +322,9 @@ def artemis_round(cfg: ArtemisConfig, state: ArtemisState,
 
     use_fused = backend == "cuda" and c_up.fused_uplink == "squant_rows"
     uplink = _uplink_fused if use_fused else _uplink_dense
-    delta_hat, new_h, new_e, sum_hat = uplink(cfg, c_up, state, grads, u_up,
-                                              active, alpha)
+    delta_hat, new_h, new_e, sum_hat, scrubbed = uplink(
+        cfg, c_up, state, grads, u_up, active, alpha, faults.of(cfg.faults),
+        flips)
 
     if cfg.pp_mode == "pp2":
         ghat = state.hbar + sum_hat / (cfg.p * n)
@@ -243,6 +350,8 @@ def artemis_round(cfg: ArtemisConfig, state: ArtemisState,
             delta_hat - active * delta, fused=False)[..., None])[..., 0],
         "compress_err_dwn": wire.sum_squares(omega - ghat, fused=False),
         "ghat_norm": wire.l2_norm(ghat),
-        "wire_scrubbed": torch.zeros_like(n_active),
+        # payloads dropped by the server this round
+        "wire_scrubbed": (torch.zeros_like(n_active) if scrubbed is None
+                          else scrubbed),
     }
     return omega, ArtemisState(new_h, new_hbar, new_e, state.step + 1), stats

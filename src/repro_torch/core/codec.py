@@ -1,9 +1,11 @@
 """Two-sided wire codecs (port of ``repro/core/codec.py``).
 
 A ``Codec`` pairs ``encode(x, u) -> WirePayload`` with ``decode(payload) ->
-x_hat``.  The port carries the three codecs the paper's variants use:
-``identity``, ``squant`` (global-norm s-quantization, paper Definition 1) and
-``row_squant`` (the fused kernels' wire format).
+x_hat``.  The registry holds every codec of the reference: ``identity``,
+``squant`` (global-norm s-quantization, paper Definition 1), ``tile_squant``
+(one scale per tile of the message), ``row_squant`` (the fused kernels' wire
+format), ``sparsify`` (keep each coordinate with probability q, an index and
+value payload) and ``topk`` (the k largest magnitudes, biased).
 
 Batching: the LAST axis of ``x`` is one message; leading axes are independent
 messages.  This is what ``jax.vmap`` over the JAX codec gives, written out.
@@ -11,7 +13,11 @@ messages.  This is what ``jax.vmap`` over the JAX codec gives, written out.
 Randomness: the uniforms enter as a tensor ``u`` of ``x``'s shape, or are
 drawn from a passed ``torch.Generator``.  Given the same ``u`` the levels
 agree with the JAX codec up to the order of the norm's reduction: bit for
-bit on the CPU for messages of at most 32 elements.
+bit on the CPU for messages (tile_squant: tiles) of at most 32 elements.
+sparsify keeps coordinate i where ``u[i] < q`` (the reference's Bernoulli
+draw is that comparison); topk draws nothing.  tile_squant takes ``u`` of
+``x``'s shape too: the reference draws over the zero-padded tiles, and a
+padded coordinate quantizes to 0 whatever its uniform.
 
 The norm's order (``sum_squares``).  On the CPU, for messages of at most 32
 elements, the port repeats the reference's order bit for bit: XLA's CPU
@@ -34,10 +40,9 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 FP_BITS = 32  # uncompressed scalar width used by the paper's bit accounting
-
-DEFERRED = ("tile_squant", "sparsify", "topk")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,6 +250,54 @@ def _squant_codec(d: int, s: int = 1, **_) -> Codec:
 
 
 # ---------------------------------------------------------------------------
+# per-tile s-quantization: one norm per ``tile`` coordinates of a message
+# ---------------------------------------------------------------------------
+
+def _tile_squant_codec(d: int, s: int = 1, tile: int = 1024, **_) -> Codec:
+    s, tile = _check_levels("tile_squant", s), int(tile)
+    if tile < 1:
+        raise ValueError(f"tile_squant tile={tile} must be positive")
+
+    def encode(x, u=None, generator=None):
+        u = _uniforms(x, u, generator)
+        n = x.shape[-1]
+        pad = (-n) % tile
+        tiles = F.pad(x, (0, pad)).reshape(*x.shape[:-1], -1, tile)
+        # a padded coordinate has r = 0, so its level is 0 for any uniform
+        ut = F.pad(u, (0, pad)).reshape(tiles.shape)
+        norms = l2_norm(tiles)[..., None]        # jnp.linalg.norm per tile
+        r = torch.where(norms > 0, tiles.abs() / norms * s,
+                        torch.zeros_like(tiles))
+        low = torch.floor(r)
+        psi = low + (ut < (r - low)).to(tiles.dtype)
+        q = (torch.sign(tiles) * psi).to(torch.int8)
+        meta = PayloadMeta("tile_squant", tuple(x.shape), str(x.dtype),
+                           (("s", s), ("tile", tile)))
+        return WirePayload({"levels": q, "scales": norms}, meta)
+
+    def decode(p):
+        out = p["levels"].to(p["scales"].dtype) * p["scales"] / s
+        n = p.meta.shape[-1]
+        return out.reshape(*out.shape[:-2], -1)[..., :n]
+
+    def validate(p):
+        return (_levels_ok(p["levels"], s).all(-1)
+                & _finite_nonneg(p["scales"]).all(-1)).to(torch.float32)
+
+    def wire_bytes(shape):
+        rows, n = _nelems(shape[:-1]), int(shape[-1])
+        t = -(-n // tile)
+        return {"s8": rows * t * tile, "f32": 4 * rows * t}
+
+    return Codec(
+        name=f"tile_squant(s={s},t={tile})", omega=squant_omega(tile, s),
+        encode=encode, decode=decode,
+        bits=lambda n, s=s, tile=tile: math.ceil(n / tile)
+        * squant_bits(min(n, tile), s),
+        wire_bytes=wire_bytes, validate=validate)
+
+
+# ---------------------------------------------------------------------------
 # row s-quantization: the fused kernels' wire format
 # ---------------------------------------------------------------------------
 
@@ -299,11 +352,105 @@ def _row_squant_codec(d: int, s: int = 1, **_) -> Codec:
         fused_uplink="squant_rows", fused_acc=True)
 
 
+# ---------------------------------------------------------------------------
+# index + value payloads: sparsify and topk
+# ---------------------------------------------------------------------------
+
+def _scatter(p) -> torch.Tensor:
+    """Decode an index + value payload: ``values`` set at ``indices`` on the
+    last axis of a zero message, as the reference's ``.at[idx].set(vals,
+    mode="drop")``: an index in [-n, 0) counts from the end, any other
+    index outside [0, n) (the sentinel n, a corrupted index) is dropped.
+    Dropped entries land in an extra slot n that is cut off."""
+    n = p.meta.shape[-1]
+    idx = p["indices"].to(torch.int64)
+    idx = torch.where(idx < 0, idx + n, idx)
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    vals = p["values"]
+    out = torch.zeros(vals.shape[:-1] + (n + 1,), dtype=vals.dtype,
+                      device=vals.device)
+    return out.scatter_(-1, idx, vals)[..., :n]
+
+
+def _sparsify_codec(d: int, q: float = 0.25, **_) -> Codec:
+    q = float(q)
+    if not 0.0 < q <= 1.0:
+        raise ValueError(f"sparsify keep-probability q={q} not in (0, 1]")
+
+    def encode(x, u=None, generator=None):
+        u = _uniforms(x, u, generator)
+        n = x.shape[-1]
+        mask = u < q
+        # kept coordinates first, each group in ascending index order; the
+        # dropped slots carry the out-of-range sentinel n
+        order = torch.argsort((~mask).to(torch.uint8), dim=-1, stable=True)
+        kept = torch.gather(mask, -1, order)
+        idx = torch.where(kept, order, n).to(torch.int32)
+        vals = torch.where(kept, torch.gather(x, -1, order) / q,
+                           torch.zeros_like(x))
+        meta = PayloadMeta("sparsify", tuple(x.shape), str(x.dtype),
+                           (("q", q),))
+        return WirePayload({"indices": idx, "values": vals}, meta)
+
+    def validate(p):
+        n = p.meta.shape[-1]
+        oki = ((p["indices"] >= 0) & (p["indices"] <= n)).all(-1)
+        return (oki & torch.isfinite(p["values"]).all(-1)).to(torch.float32)
+
+    def wire_bytes(shape):
+        # fixed capacity: n index slots (s32) and n value slots (f32)
+        n = _nelems(shape)
+        return {"s32": 4 * n, "f32": 4 * n}
+
+    return Codec(
+        name=f"sparsify(q={q})", omega=1.0 / q - 1.0,
+        encode=encode, decode=_scatter,
+        bits=lambda n, q=q: q * n * (FP_BITS + max(1.0,
+                                                   math.log2(max(n, 2)))),
+        wire_bytes=wire_bytes, validate=validate)
+
+
+def _topk_codec(d: int, frac: float = 0.1, **_) -> Codec:
+    frac = float(frac)
+
+    def top(n: int) -> int:
+        return max(1, int(n * frac))
+
+    def encode(x, u=None, generator=None):
+        k = top(x.shape[-1])
+        # exactly k coordinates; on tied magnitudes the lower index first,
+        # as jax.lax.top_k orders them (torch.topk promises no tie order)
+        idx = torch.argsort(x.abs(), dim=-1, descending=True,
+                            stable=True)[..., :k]
+        meta = PayloadMeta("topk", tuple(x.shape), str(x.dtype),
+                           (("frac", frac), ("k", k)))
+        return WirePayload({"indices": idx.to(torch.int32),
+                            "values": torch.gather(x, -1, idx)}, meta)
+
+    def validate(p):
+        n = p.meta.shape[-1]
+        oki = ((p["indices"] >= 0) & (p["indices"] < n)).all(-1)
+        return (oki & torch.isfinite(p["values"]).all(-1)).to(torch.float32)
+
+    def wire_bytes(shape):
+        k = _nelems(shape[:-1]) * top(int(shape[-1]))
+        return {"s32": 4 * k, "f32": 4 * k}
+
+    return Codec(
+        name=f"topk({frac})", omega=1.0 - frac,
+        encode=encode, decode=_scatter,
+        bits=lambda n: top(n) * (FP_BITS + max(1.0, math.log2(max(n, 2)))),
+        wire_bytes=wire_bytes, validate=validate, unbiased=False)
+
+
 _REGISTRY: Dict[str, Callable[..., Codec]] = {
     "identity": _identity_codec,
     "none": _identity_codec,
     "squant": _squant_codec,
+    "tile_squant": _tile_squant_codec,
     "row_squant": _row_squant_codec,
+    "sparsify": _sparsify_codec,
+    "topk": _topk_codec,
 }
 
 
@@ -315,9 +462,6 @@ def available() -> Tuple[str, ...]:
 def make_codec(name: str, d: int, **kwargs) -> Codec:
     """Build a registered codec for messages of dimension ``d`` (``d`` fixes
     omega).  Unknown kwargs are ignored, as in the reference."""
-    if name in DEFERRED:
-        raise NotImplementedError(
-            f"codec {name!r} is not ported yet; see ROADMAP.md")
     if name not in _REGISTRY:
         raise ValueError(
             f"unknown codec {name!r}; choose from {sorted(_REGISTRY)}")

@@ -38,8 +38,9 @@ Randomness enters as tensors from a noise source (``core/noise.py``), in
 place of the reference's ``_round_keys`` chain.
 
 Not ported yet (each raises ``NotImplementedError``): the leaf wire, fault
-injection (ROADMAP A7), mesh telemetry (A11), and the ``shard_map`` and
-``NamedSharding`` helpers, which have no meaning on a simulated axis.
+injection on the mesh (ROADMAP A7, queued with A10), mesh telemetry
+(A11), and the ``shard_map`` and ``NamedSharding`` helpers, which have no
+meaning on a simulated axis.
 """
 from __future__ import annotations
 
@@ -91,7 +92,7 @@ class DistConfig:
             raise ValueError(
                 f"reduce_impl={self.reduce_impl!r} not in {REDUCE_IMPLS}")
         name = {"squant": "row_squant"}.get(self.codec, self.codec)
-        known = wire.available() + wire.DEFERRED
+        known = wire.available()
         if name not in known:
             raise ValueError(f"codec={self.codec!r} not in {known}")
 

@@ -9,7 +9,7 @@
 //   scale  = norm / s, or 0 when norm is not finite
 //   r      = |v| / (norm > 0 ? norm : 1) * s
 //   q      = int8(sign(v) * (floor(r) + (u < r - floor(r))))  (0 where r
-//            is NaN)
+//            is NaN, saturated where a NaN norm lets r leave int8)
 //   h_new  = round_T(h + round_T(round_T(alpha) *
 //                                round_T(q * round_T(scale))))
 //
@@ -202,7 +202,10 @@ __device__ __forceinline__ int8_t quantize(const Quant<T>& k, float v,
   const float psi = __fadd_rn(low, uv < __fsub_rn(r, low) ? 1.f : 0.f);
   const float sign = v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
   const float qf = __fmul_rn(sign, psi);
-  const int8_t qi = isnan(qf) ? (int8_t)0 : (int8_t)(int)qf;
+  // int8 as XLA converts: NaN to 0, out-of-range values saturated (|qf|
+  // exceeds s + 1 only where the norm is NaN and safe is 1)
+  const int8_t qi =
+      isnan(qf) ? (int8_t)0 : (int8_t)(int)fminf(fmaxf(qf, -128.f), 127.f);
   if constexpr (kMem) {
     const float dq = round_to<T>(__fmul_rn((float)qi, k.scale_t));
     *hn = round_to<T>(__fadd_rn(hv, round_to<T>(__fmul_rn(k.alpha_t, dq))));

@@ -1,8 +1,11 @@
 """The paper's headline experiments on the port (``examples/federated_artemis.py``
-exp1 to exp4 and ``benchmarks/paper_figs.py::fig4_bits``), at the reference's
-N, d, iterations and step sizes, and the mesh wire's training run
-(``toy_mesh_train``), and one step of compressed SGD through the ops API
-(``compressed_sgd_step``).  Each returns its numbers; none prints.
+exp1 to exp5 and ``benchmarks/paper_figs.py``'s ``fig4_bits``,
+``table3_gamma_max`` and ``thm3_variance_lower_bound``), at the reference's
+N, d, iterations and step sizes; the fault model's recovery checks
+(``fault_matrix``, as ``benchmarks/fault_bench.py::run_matrix``); the mesh
+wire's training run (``toy_mesh_train``), and one step of compressed SGD
+through the ops API (``compressed_sgd_step``).  Each returns its numbers;
+none prints.
 
 Every function runs on ``device`` (CUDA unless the caller passes another)
 with ``backend="cuda"``, so the squant uplinks go through the fused kernels
@@ -12,8 +15,9 @@ claims do not depend on them.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,6 +25,7 @@ import torch
 from repro_torch import default_device
 from repro_torch.core import artemis as art
 from repro_torch.core import dist
+from repro_torch.core import faults
 from repro_torch.core import federated as fed
 from repro_torch.core import sweep as sw
 from repro_torch.kernels import ops
@@ -111,12 +116,14 @@ def exp4_pp(device=None) -> Dict:
 
 
 def fig4_bits(device=None, gamma_mults: Sequence[float] = (1.0,),
-              seeds: Sequence[int] = (0,)) -> Dict:
+              seeds: Sequence[int] = (0,),
+              fault_config: Optional[faults.FaultConfig] = None) -> Dict:
     """Fig 4: loss against communicated bits on the clustered non-i.i.d.
     problem (N=20, n_per=300, d=40, batch 16, 600 rounds, eval every 5).
     ``gamma_mults`` scale the reference's step 0.5/L; the grid is the
-    5 variants x gammas x seeds.  Returns, per variant, the bits the first
-    cell (gamma 0, seed 0) spent to halve the excess loss (inf if never)."""
+    5 variants x gammas x seeds, every variant under ``fault_config``.
+    Returns, per variant, the bits the first cell (gamma 0, seed 0) spent
+    to halve the excess loss (inf if never), and the grid's rollbacks."""
     dev = default_device(device)
     prob = fed.make_clustered_problem(5, n_workers=N, n_per=300, d=40,
                                       device=dev)
@@ -125,7 +132,8 @@ def fig4_bits(device=None, gamma_mults: Sequence[float] = (1.0,),
                     - opt)
     gamma = 0.5 / prob.smoothness()
     variants = ["sgd", "qsgd", "diana", "biqsgd", "artemis"]
-    cfgs = [art.variant_config(v, 40, N) for v in variants]
+    cfgs = [dataclasses.replace(art.variant_config(v, 40, N),
+                                faults=fault_config) for v in variants]
     res, us = _timed_sweep(prob, cfgs, [gamma * m for m in gamma_mults],
                            list(seeds), 600, batch=16, eval_every=5)
     out = {}
@@ -135,7 +143,132 @@ def fig4_bits(device=None, gamma_mults: Sequence[float] = (1.0,),
         out[v] = float(res.bits[vi, 0, 0, hit[0]]) if hit.size else np.inf
     return {"bits_to_half_loss": out, "us_per_round_cell": us,
             "cells": len(cfgs) * len(gamma_mults) * len(seeds),
-            "finite": bool(np.isfinite(res.losses).all())}
+            "finite": bool(np.isfinite(res.losses).all()),
+            "rollbacks": int(res.rollbacks.sum())}
+
+
+def exp5_faults(device=None) -> Dict:
+    """Beyond Assumption 6: artemis at p = 0.5 on i.i.d. LSR (sigma_* != 0)
+    in four cells: clean, sticky Markov availability (p_stay 0.9), NaN
+    gradient blowups healed by scrubbing, and wire bit flips under
+    scrubbing and the divergence sentinel (20, backoff 0.8).  Returns each
+    cell's final loss and rollback count."""
+    dev = default_device(device)
+    prob, _ = fed.make_lsr_problem(9, n_workers=N, n_per=200, d=D,
+                                   noise=0.4, device=dev)
+    gamma = 0.5 * fed.gamma_max(prob, art.variant_config("artemis", D, N))
+    base = art.variant_config("artemis", D, N, p=0.5)
+    grid = {
+        "clean": None,
+        "markov": faults.FaultConfig(p_stay=0.9),
+        "nan_blowups_scrubbed": faults.FaultConfig(blowup_rate=0.2,
+                                                   scrub=True),
+        "bitflips_sentinel": faults.FaultConfig(
+            bitflip_rate=0.005, scrub=True, sentinel=20.0, backoff=0.8),
+    }
+    cfgs = [dataclasses.replace(base, faults=fc) for fc in grid.values()]
+    res, us = _timed_sweep(prob, cfgs, [gamma], [0], 1500, batch=1,
+                           eval_every=10)
+    return {"final_loss": {name: float(res.losses[i, 0, 0, -1])
+                           for i, name in enumerate(grid)},
+            "rollbacks": {name: int(res.rollbacks[i, 0, 0])
+                          for i, name in enumerate(grid)},
+            "finite": bool(np.isfinite(res.losses[:, 0, 0, -1]).all()),
+            "us_per_round_cell": us}
+
+
+def fault_matrix(device=None) -> Dict:
+    """The fault model's recovery checks (``benchmarks/fault_bench.py::
+    run_matrix``), artemis at p = 0.7 on LSR, N = 8, d = 16, 40 rounds:
+    the zero-fault config is the identity bit for bit; NaN blowups under
+    scrubbing stay finite and converge; huge finite blowups under the
+    sentinel roll back and back off the step size; bit flips on the
+    ``cuda`` backend's fused wire under scrubbing and the sentinel stay
+    finite.  Returns each check's outcome and its numbers."""
+    dev = default_device(device)
+    n, d = 8, 16
+    prob, _ = fed.make_lsr_problem(3, n_workers=n, n_per=50, d=d, noise=0.3,
+                                   device=dev)
+
+    def run(fc, backend="dense"):
+        cfg = dataclasses.replace(art.variant_config("artemis", d, n, p=0.7),
+                                  faults=fc)
+        return sw.run_sweep(prob, [cfg], [0.02], [0], 40, batch=4,
+                            backend=backend, device=dev)
+
+    base, zero = run(None), run(faults.FaultConfig())
+    scrub = run(faults.FaultConfig(blowup_rate=0.25, scrub=True))
+    sent = run(faults.FaultConfig(blowup_rate=0.1, blowup_value=1e15,
+                                  scrub=True, sentinel=1e3))
+    flip = run(faults.FaultConfig(bitflip_rate=0.05, scrub=True,
+                                  sentinel=1e4), backend="cuda")
+    first, last = scrub.losses[0, 0, 0, 0], scrub.losses[0, 0, 0, -1]
+    rb, gs = int(sent.rollbacks[0, 0, 0]), float(sent.gamma_scale[0, 0, 0])
+    return {
+        "identity": bool(np.array_equal(base.losses, zero.losses)
+                         and np.array_equal(base.bits, zero.bits)),
+        "scrub": bool(np.isfinite(scrub.losses).all() and last < first),
+        "sentinel": bool(np.isfinite(sent.losses).all() and rb >= 1
+                         and gs < 1.0),
+        "bitflip": bool(np.isfinite(flip.losses).all()),
+        "scrub_loss": [float(first), float(last)], "rollbacks": rb,
+        "gamma_scale": gs,
+        "bitflip_loss": [float(flip.losses[0, 0, 0, 0]),
+                         float(flip.losses[0, 0, 0, -1])]}
+
+
+def table3_gamma_max(device=None) -> Dict:
+    """Table 3: the theory's gamma_max is sufficient for convergence.  On
+    noiseless i.i.d. LSR, each of sgd, qsgd and artemis runs 400 rounds at
+    gamma_max times 1, 2, ..., 128 (one sweep per variant over the gamma
+    axis); a step size converges when its final loss is finite and below
+    the loss at w0.  Returns, per variant, whether gamma_max
+    converges and the empirical edge over it (the largest multiplier
+    before the first failure, halved as the reference reports it)."""
+    dev = default_device(device)
+    prob, _ = fed.make_lsr_problem(123, n_workers=N, n_per=200, d=D,
+                                   noise=0.0, device=dev)
+    f0 = float(prob.global_loss(torch.zeros(D, device=dev)))
+    mults = 2.0 ** np.arange(8)
+    out, us_all = {}, []
+    for variant in ("sgd", "qsgd", "artemis"):
+        cfg = art.variant_config(variant, D, N)
+        g = fed.gamma_max(prob, cfg)
+        res, us = _timed_sweep(prob, [cfg], g * mults, [0], 400, batch=8,
+                               eval_every=100)
+        last = res.losses[0, :, 0, -1]
+        ok = np.isfinite(last) & (last < f0)
+        edge = mults[np.argmin(ok)] / 2 if (~ok).any() else mults[-1]
+        out[variant] = {"gamma_max": g, "converges": bool(ok[0]),
+                        "empirical_over_theory": float(edge)}
+        us_all.append(us)
+    return {"variants": out, "us_per_round_cell": float(np.mean(us_all))}
+
+
+def thm3_variance_lower_bound(device=None) -> Dict:
+    """Thm 3: the asymptotic variance grows with omega_up and omega_dwn:
+    sparsification up and down at q in {1, 0.5, 0.25} (omega = 1/q - 1) on
+    noisy i.i.d. LSR at gamma = 1/(6L), 800 rounds, saturates higher as q
+    falls.
+    Returns each q's saturation (mean excess loss over the last 10 eval
+    points)."""
+    dev = default_device(device)
+    prob, _ = fed.make_lsr_problem(123, n_workers=N, n_per=200, d=D,
+                                   noise=0.4, device=dev)
+    opt = float(prob.global_loss(prob.solve_opt()))
+    gamma = 1.0 / (6 * prob.smoothness())
+    qs = [1.0, 0.5, 0.25]
+    cfgs = [art.ArtemisConfig(dim=D, n_workers=N, up="sparsify",
+                              dwn="sparsify", up_kwargs={"q": q},
+                              dwn_kwargs={"q": q},
+                              alpha=0.0 if q == 1.0 else None)
+            for q in qs]
+    res, us = _timed_sweep(prob, cfgs, [gamma], [0], 800, batch=1,
+                           eval_every=10)
+    sat = {q: float(np.mean(res.losses[qi, 0, 0, -10:])) - opt
+           for qi, q in enumerate(qs)}
+    return {"saturation": sat, "monotone": sat[0.25] > sat[1.0],
+            "us_per_round_cell": us}
 
 
 def toy_mesh_train(variant: str = "artemis", reduce_impl: str = "pipelined",

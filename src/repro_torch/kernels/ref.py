@@ -36,7 +36,8 @@ def squant_encode_ref(x: torch.Tensor, u: torch.Tensor, s: int, bm: int,
     """Per-tile stochastic s-quantization, the math in f32 whatever the
     dtypes of x and u.  Returns (q int8 [M, N], scales f32 [M/bm, N/bn])
     with ``decode(q, scales) = q * scale`` per tile and scale = ||tile|| / s
-    (0 when the norm is not finite; the level is 0 where r is NaN)."""
+    (0 when the norm is not finite; the level is 0 where r is NaN and
+    saturated to the int8 range where r overflows it)."""
     xb = _blockify(x, bm, bn).to(torch.float32)
     ub = _blockify(u, bm, bn).to(torch.float32)
     norms = torch.sqrt(torch.sum(xb * xb, dim=(-2, -1), keepdim=True))
@@ -47,7 +48,10 @@ def squant_encode_ref(x: torch.Tensor, u: torch.Tensor, s: int, bm: int,
     low = torch.floor(r)
     psi = low + (ub < (r - low)).to(torch.float32)
     qf = torch.sign(xb) * psi
-    q = torch.where(torch.isnan(qf), torch.zeros_like(qf), qf)
+    # int8 as XLA converts: NaN to 0, out of range saturated (only a tile
+    # with a NaN norm, where safe is 1, can leave [-(s+1), s+1])
+    q = torch.where(torch.isnan(qf), torch.zeros_like(qf),
+                    qf.clamp(-128.0, 127.0))
     return _unblockify(q.to(torch.int8)), scales[..., 0, 0]
 
 

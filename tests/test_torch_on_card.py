@@ -471,3 +471,147 @@ def test_tree_memory_update_on_card(cuda_device):
                                    atol=1e-6)
         torch.testing.assert_close(hn[k].cpu(), hn_c[k], rtol=1e-5,
                                    atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the fault model on the card
+# ---------------------------------------------------------------------------
+
+def _same_values(a, b):
+    """Bit for bit, NaN placement included."""
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a) if a.is_floating_point() else torch.zeros_like(
+        a, dtype=torch.bool)
+    assert torch.equal(nan, torch.isnan(b) if b.is_floating_point()
+                       else nan)
+    ints = {torch.float32: torch.int32, torch.int8: torch.int8,
+            torch.int32: torch.int32}
+    assert torch.equal(a.view(ints[a.dtype])[~nan],
+                       b.view(ints[b.dtype])[~nan])
+
+
+@pytest.mark.cuda
+def test_fault_primitives_on_card_match_cpu(cuda_device):
+    """Bit flips, scrubbing, validity and the Markov chain give the same
+    bits on the card as on the CPU."""
+    from repro_torch.core import codec as tcodec
+    from repro_torch.core import faults as tflt
+    gen = torch.Generator().manual_seed(0)
+    shape = (64, 20, 40)
+    q = torch.randint(-128, 128, shape, generator=gen, dtype=torch.int8)
+    x = torch.randn(shape, generator=gen)
+    i = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                      dtype=torch.int32)
+    bit8 = torch.randint(0, 8, shape, generator=gen, dtype=torch.int32)
+    bit32 = torch.randint(0, 32, shape, generator=gen, dtype=torch.int32)
+    u = torch.rand(shape, generator=gen)
+    dev = cuda_device
+    for fn, a, b in ((tflt.corrupt_int8, q, bit8), (tflt.corrupt_f32, x,
+                                                    bit32),
+                     (tflt.corrupt_i32, i, bit32)):
+        _same_values(fn(a.to(dev), b.to(dev), u.to(dev), 0.3),
+                     fn(a, b, u, 0.3))
+    codec = tcodec.make_codec("row_squant", 40, s=1)
+    p = codec.encode(x, u)
+    draws = [(bit8, u), (bit32[..., :1], u[..., :1])]
+    only = (u[..., 0] < 0.7).float()
+    cpu = tflt.corrupt_payload(draws, p, 0.2, only=only)
+    card = tflt.corrupt_payload(
+        [(b.to(dev), v.to(dev)) for b, v in draws],
+        p.replace(**{k: v.to(dev) for k, v in p.data.items()}), 0.2,
+        only=only.to(dev))
+    for k in cpu.keys():
+        _same_values(card[k], cpu[k])
+    valid = codec.validate(card)
+    torch.testing.assert_close(valid.cpu(), codec.validate(cpu))
+    scrubbed = tflt.scrub_payload(card, valid)
+    for k, v in tflt.scrub_payload(cpu, codec.validate(cpu)).data.items():
+        _same_values(scrubbed[k], v)
+    fc = tflt.FaultConfig(p_stay=0.9)
+    prev_c, prev_d = torch.zeros(64), torch.zeros(64, device=dev)
+    for k in range(20):
+        uk = torch.rand(64, generator=gen)
+        prev_c = tflt.participation(fc, 0.5, uk, prev_c, k)
+        prev_d = tflt.participation(fc, 0.5, uk.to(dev), prev_d, k)
+        _same_values(prev_d, prev_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,block", [((2560, 40), (1, 40)),
+                                         ((2048, 256), (256, 256)),
+                                         ((8, 2**17), (1, 2**17))])
+def test_fused_memory_kernel_on_fault_inputs(cuda_device, shape, block):
+    """Tiles a fault can hand B1 (all NaN, one NaN, +-Inf, all -0.0, an
+    overflowing norm, a NaN norm beside blown-up entries whose levels
+    saturate): bit for bit with the plain version there, NaN placement
+    included everywhere."""
+    g, h, u = _rand(shape, 41, cuda_device)
+    bm, bn = block
+    t = [slice(j * bm, (j + 1) * bm) for j in range(6)]
+    g[t[0]] = float("nan")
+    g[t[1]][-1, 3] = float("inf")
+    g[t[2]][0, 0] = -float("inf")
+    g[t[3]], h[t[3]] = -0.0, -0.0
+    g[t[4]][0, :2] = 3e38
+    g[t[5]] *= 1e15
+    h[t[5]][0, 1] = float("nan")
+    out = tfm.fused_memory_update(g, h, u, 0.5, s=2, block=block)
+    ref = tfm.fused_memory_update_plain(g, h, u, 0.5, s=2, block=block)
+    rows = 6 * bm
+    for a, b in zip(out, ref):
+        _same_values(a[:rows] if a.shape[0] == g.shape[0] else a[:6],
+                     b[:rows] if b.shape[0] == g.shape[0] else b[:6])
+    assert torch.equal(torch.isnan(out[2]), torch.isnan(ref[2]))
+    assert set(out[0][t[5]].unique().tolist()) <= {-128, 0, 127}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,c,strided", [(20, 128, 40, True),
+                                           (8, 16, 64, False),
+                                           (20, 1, 4096, False),
+                                           (5, 7, 33, True)])
+def test_ring_sum_kernel_on_corrupted_payloads(cuda_device, n, m, c,
+                                               strided):
+    """Levels over the whole int8 range and scales that are NaN, +-Inf,
+    -0.0, negative or overflowing: every path of B2 bit for bit with its
+    plain version, NaN placement included."""
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(n + m + c)
+    q = torch.randint(-128, 128, (m, n, c), generator=gen, device=dev,
+                      dtype=torch.int8)
+    sc = torch.rand(m, n, 1, generator=gen, device=dev)
+    flat = sc.view(-1)
+    bad = [float("nan"), float("inf"), -0.0, -float("inf"), -2.5, 3e38]
+    flat[:len(bad)] = torch.tensor(bad, device=dev)
+    q.view(-1)[:c] = -128
+    if strided:
+        q, sc = q.transpose(0, 1), sc.transpose(0, 1)
+    else:
+        q, sc = q.reshape(n, m, c), sc.reshape(n, m, 1)
+    _same_values(trs.ring_sum(q, sc), trs.ring_sum_plain(q, sc))
+
+
+@pytest.mark.cuda
+def test_faulted_sweep_resumes_bitwise_on_card(cuda_device, tmp_path):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import faults as tflt
+    from repro_torch.core import federated as tfed
+    from repro_torch.core import sweep as tsw
+    prob, _ = tfed.make_lsr_problem(3, n_workers=8, n_per=50, d=16,
+                                    noise=0.3, device=cuda_device)
+    cfgs = [dataclasses.replace(tart.variant_config(v, 16, 8, p=0.7),
+                                faults=tflt.FaultConfig(
+                                    bitflip_rate=0.05, scrub=True,
+                                    sentinel=1e4))
+            for v in ("sgd", "artemis")]
+    kw = dict(batch=4, eval_every=2, backend="cuda", device=cuda_device,
+              checkpoint_dir=str(tmp_path), checkpoint_every=10)
+    full = tsw.run_sweep(prob, cfgs, [0.02, 0.05], [0, 1], 40, **kw)
+    (tmp_path / "LATEST").write_text("5")
+    res = tsw.run_sweep(prob, cfgs, [0.02, 0.05], [0, 1], 40, resume=True,
+                        **kw)
+    for f in ("losses", "bits", "w_final", "rollbacks", "gamma_scale"):
+        assert np.array_equal(getattr(full, f), getattr(res, f)), f

@@ -209,12 +209,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tprob):
 
 def test_sweep_rejects_unported_options(tprob):
     cfg = tart.variant_config("artemis", D, N)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
         tsw.run_sweep(tprob, [cfg], [0.1], [0], 2, device="cpu",
                       telemetry=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # as in the reference: telemetry cannot ride a checkpointed sweep
+    with pytest.raises(ValueError, match="telemetry"):
         tsw.run_sweep(tprob, [cfg], [0.1], [0], 2, device="cpu",
-                      checkpoint_dir="ckpt")
+                      telemetry=True, checkpoint_dir="ckpt")
     with pytest.raises(ValueError):
         tsw.run_sweep(tprob, [cfg], [0.1], [0], 5, eval_every=2,
                       device="cpu")
