@@ -83,15 +83,54 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
 14. figures: ``table3_gamma_max`` (the theory's gamma_max converges for
    sgd, qsgd and artemis) and ``thm3_variance_lower_bound`` (q = 0.25
    saturates above q = 1);
-15. resume: the faulted grid (640 cells, 100 rounds) checkpointed every 50
-   rounds, rewound to its first snapshot and resumed, bit for bit with
+15. resume: the faulted grid at 8 seeds (320 cells, 100 rounds)
+   checkpointed every 50 rounds, rewound to its first snapshot and resumed, bit for bit with
    the uninterrupted run; the time of one save of its snapshot; then the
    profile of phase 6 again under ``GRID_FAULTS``.
 
+16. fault ring kernels (after the mesh kernels): bucket_acc (out of place
+   and every in-place hop) and bucket_ring_sum on corrupted payloads of
+   the mesh stack [8, 16, 49, 64] (flipped bits, NaN, +-Inf, 0.0, -0.0 and
+   negative scales), scrubbed and not, and bucket_acc_hop_ hops 0..W-1 on
+   the leaf wire's stacks [8, 1024, 1024], [8, 1, 1024] and [8, 1024, 1],
+   bit for bit with NaN placement;
+17. telemetry grid (after phase 6): the 640-cell grid of phase 5 with the
+   sweep's telemetry, bit for bit with phase 5 in losses, distances and
+   bits, its µs per round per cell beside phase 5's, and the profile of
+   phase 6 with telemetry (the device ops a round it adds);
+18. mesh leaf (after phase 8): the mesh phase's configuration on the leaf
+   wire, every variant, 20 steps: the loss falls (dore first descends)
+   and bucket_acc launches W times a leaf a communicating step;
+19. wide leaf: ToyMLP(12, 1024) (25 leaves) on the default leaf wire,
+   profiled as phase 8, and its telemetry's wire bytes a worker against
+   ``launch/roofline.py::leaf_wire_model`` exactly;
+20. mesh faults: the reference's fault matrix (bit flips, NaN blowups,
+   stragglers over a Markov chain, each with scrubbing) on both wires at
+   the mesh configuration, p = 0.5, 20 steps, and the bit-flip cell on the
+   bucketed psum (bucket_ring_sum under faults): losses and parameters
+   finite, the telemetry's counts non-zero and within their bounds where
+   the config makes them so, and FaultConfig() bit for bit with no config
+   on both wires;
+21. wide faulted: the wide bucketed step under bit flips and scrubbing,
+   beside phase 8's clean step;
+22. pg ring: whether gloo's send and receive move a CUDA tensor (two
+   ranks), then W = 4 ranks of ``core/dist_pg.py`` on the card (gloo,
+   payloads staged through pinned host memory), ToyMLP(12, 1024), 5
+   steps of each reduce_impl: rank 0 against the simulated axis over the
+   same draws and the ranks' own gradients (pipelined and sequential bit
+   for bit, psum to 1e-5), the bytes a rank sends against (W - 1) times
+   the codec's wire bytes, µs per step;
+23. obs smoke (last): ``python -m repro_torch.obs smoke`` on the card into
+   ``build/chip_smoke_obs``, ``validate`` on its events, the directory
+   removed.
+
 The simulator's path (phases 4 and 5), the fault path (phases 13 to 15),
-the mesh's (phases 7 and 8) and the compression API's (phase 10) are each
-driven with every launch count set to 0 just before and read just after;
-the kernels line adds the simulator's and the fault path's launches.
+the telemetry grid (17), the mesh's (phases 7 and 8), the leaf wire's
+(18, 19), the mesh's fault path (20, 21) and the compression API's (phase
+10) are each driven with every launch count set to 0 just before and read
+just after; the pg ring's ranks count their own.  The kernels line adds
+the simulator's, the fault path's and the telemetry grid's launches of B1,
+B2 and the worker sum, and every mesh path's of B3 and B4.
 
 It prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -143,6 +182,9 @@ BSUM_CASES = [(W, 16, 49, 64), (W, 16, 3076, 256)]
 HOP_CASES = BSUM_CASES
 MAIN_ACC, MAIN_BSUM = ACC_CASES[1], BSUM_CASES[0]
 MESH_STEPS, WIDE_STEPS = 20, 10
+# the leaf wire's stacks of ToyMLP(12, 1024) at W = 8: a weight, a bias (one
+# row) and the head (rows of one element)
+LEAF_STACKS = [(W, 1024, 1024), (W, 1, 1024), (W, 1024, 1)]
 
 # compression-API shapes: ops._pack lays a ToyMLP(12, 1024) weight
 # (1024 x 1024) out as [4096, 256] in (256, 256) tiles (the main shape);
@@ -160,9 +202,12 @@ OPS_STEPS, OPS_S, OPS_LR, OPS_ALPHA = 10, 1, 0.01, 0.5
 
 # the fault path: the Fig. 4 grid again, every variant under bit flips,
 # scrubbing and the sentinel; the resume phase's checkpointed faulted grid
-# (all 640 cells, 100 rounds, a snapshot every 50)
+# (100 rounds, a snapshot every 50)
 GRID_FAULTS = dict(bitflip_rate=0.01, scrub=True, sentinel=1e6)
 RESUME_ITERS, RESUME_EVERY = 100, 50
+# the resume phase's grid at 8 of the 16 seeds (320 cells), so that the
+# whole script stays under 300 s
+RESUME_SEEDS = GRID_SEEDS[:8]
 # the codecs phase: (codec, kwargs, shape) on the card against the CPU;
 # [128, 20, 40] is a grid variant's uplink, [20, 5000] a longer message
 CODEC_CASES = [("tile_squant", {"s": 1, "tile": 1024}, (20, 5000)),
@@ -667,7 +712,9 @@ def grid_phase(dev):
     check(got == (want, want),
           f"grid: kernel launches {got}, expected {want} each")
     res["seconds"] = secs
+    sweep = res.pop("sweep")
     log(f"grid: {json.dumps(res, default=float)}")
+    res["sweep"] = sweep
     return res
 
 
@@ -704,9 +751,10 @@ def _fmt_share(busy):
     return "not measured" if busy is None else f"{busy:.4f}"
 
 
-def profile_phase(dev, fault_config=None):
+def profile_phase(dev, fault_config=None, telemetry=False):
     """Device-busy share over 20 rounds of one variant's 128 grid cells
-    (under ``fault_config``, a dict of FaultConfig fields, if given)."""
+    (under ``fault_config``, a dict of FaultConfig fields, if given; with
+    the sweep's telemetry when ``telemetry``)."""
     import dataclasses
     import torch
     from repro_torch.core import artemis as art
@@ -720,12 +768,14 @@ def profile_phase(dev, fault_config=None):
         cfg = dataclasses.replace(
             cfg, faults=faults.FaultConfig(**fault_config))
     gammas = [0.5 / prob.smoothness() * m for m in GRID_MULTS]
-    kw = dict(batch=16, eval_every=5, backend="cuda", device=dev)
+    kw = dict(batch=16, eval_every=5, backend="cuda", device=dev,
+              telemetry=telemetry)
     sw.run_sweep(prob, [cfg], gammas, GRID_SEEDS, 10, **kw)   # warm-up
     torch.cuda.synchronize()
     wall_us, dev_us, busy, n_ops, top = profiled(
         lambda: sw.run_sweep(prob, [cfg], gammas, GRID_SEEDS, 20, **kw))
-    label = "grid profile" + (" (faulted)" if fault_config else "")
+    label = "grid profile" + (" (faulted)" if fault_config else "") + (
+        " (telemetry)" if telemetry else "")
     log(f"{label}: 20 rounds x 128 cells, wall {wall_us:.0f} us, "
         f"device busy {dev_us:.0f} us, share {_fmt_share(busy)}, "
         f"{n_ops / 20:.1f} device ops per round")
@@ -844,7 +894,8 @@ def wide_phase(dev):
     rolls = [key for key, _, _ in top if re.search(r"(?<![A-Za-z])roll", key)]
     log(f"wide: roll kernels among the top device ops: {rolls or 'none'}")
     return {"us_per_step": wall_us / WIDE_STEPS, "busy_share": busy,
-            "device_us_per_step": dev_us / WIDE_STEPS, "top": top,
+            "device_us_per_step": dev_us / WIDE_STEPS,
+            "device_ops_per_step": n_ops / WIDE_STEPS, "top": top,
             "layout": list(layout.shape), "launches": launched,
             "peak_bytes": peak, "top_rolls": rolls}
 
@@ -1341,6 +1392,7 @@ def fault_phase(dev):
     res = ex.fig4_bits(device=dev, gamma_mults=GRID_MULTS, seeds=GRID_SEEDS,
                        fault_config=fc)
     res["seconds"] = time.perf_counter() - t0
+    res.pop("sweep")
     check(res["cells"] == 640, f"faulted grid: {res['cells']} cells")
     check(res["finite"], "faulted grid: non-finite losses")
     want = expected_launches(cfgs, 600)
@@ -1373,7 +1425,7 @@ def figures_phase(dev):
 
 
 def resume_phase(dev):
-    """A checkpointed faulted grid (the Fig. 4 problem, 640 cells), rewound
+    """A checkpointed faulted grid (the Fig. 4 problem, 320 cells), rewound
     to its first snapshot and resumed, against the uninterrupted run; and
     the time of one save of the grid's snapshot."""
     import dataclasses
@@ -1397,14 +1449,14 @@ def resume_phase(dev):
               checkpoint_dir=ckdir, checkpoint_every=RESUME_EVERY)
     try:
         t0 = time.perf_counter()
-        full = sw.run_sweep(prob, cfgs, gammas, GRID_SEEDS, RESUME_ITERS,
+        full = sw.run_sweep(prob, cfgs, gammas, RESUME_SEEDS, RESUME_ITERS,
                             **kw)
         full_s = time.perf_counter() - t0
         half = RESUME_EVERY // 5
         with open(os.path.join(ckdir, "LATEST"), "w") as f:
             f.write(str(half))
         t0 = time.perf_counter()
-        res = sw.run_sweep(prob, cfgs, gammas, GRID_SEEDS, RESUME_ITERS,
+        res = sw.run_sweep(prob, cfgs, gammas, RESUME_SEEDS, RESUME_ITERS,
                            resume=True, **kw)
         resumed_s = time.perf_counter() - t0
         for f in ("losses", "bits", "dists", "w_final", "w_avg",
@@ -1434,6 +1486,537 @@ def resume_phase(dev):
         f"{RESUME_ITERS}; one save {save_ms:.1f} ms for {nbytes} bytes: "
         f"{json.dumps(out)}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the mesh wire's second half: the leaf wire, faults, telemetry, the
+# process-group ring, and the obs package
+# ---------------------------------------------------------------------------
+
+def _corrupt_stack(dev, shape, seed, scrub):
+    """A [W, ..., R, C] row-scale payload as the faulted wire hands it to
+    the ring: levels with flipped bits over the whole int8 range, scales
+    that are NaN, +-Inf, 0.0, -0.0 or negative; with ``scrub`` after the
+    server's checksum (``dist.message_valid``, ``faults.scrub_payload``:
+    finite scales, a failed bucket's zeroed)."""
+    import torch
+    from repro_torch.core import codec as wire
+    from repro_torch.core import dist
+    from repro_torch.core import faults
+    gen, q, scales = _payload(dev, shape, seed)
+    meta = wire.PayloadMeta("row_squant", tuple(shape), "torch.float32",
+                            (("s", 3),))
+    p = wire.WirePayload({"levels": q, "scales": scales}, meta)
+    draws = [(torch.randint(0, bits, t.shape, generator=gen, device=dev,
+                            dtype=torch.int32),
+              torch.rand(t.shape, generator=gen, device=dev))
+             for t, bits in ((q, 8), (scales, 32))]
+    p = faults.corrupt_payload(draws, p, 5e-4)
+    sc = p["scales"].clone()
+    flat = sc.view(-1)
+    flat[0], flat[1], flat[2] = float("nan"), float("inf"), -float("inf")
+    flat[3], flat[4], flat[5] = 0.0, -0.0, -2.5
+    p = p.replace(scales=sc)
+    if scrub:
+        codec = wire.make_codec("row_squant", shape[-1], s=3)
+        valid = dist.message_valid(codec, p, 2)
+        p = faults.scrub_payload(p, valid)
+    return p["levels"].contiguous(), p["scales"].contiguous()
+
+
+def fault_ring_kernel_phase(dev):
+    """B3 (out of place and the ring's in-place hop) and B4 on corrupted
+    payloads of the mesh stack [8, 16, 49, 64], scrubbed and not, and B3's
+    hops 0..W-1 on the leaf wire's stacks [8, 1024, 1024] (a weight),
+    [8, 1, 1024] (a bias, one row) and [8, 1024, 1] (the head: rows of one,
+    the one-element path).  Bit for bit with the plain versions, NaN
+    placement included."""
+    import torch
+    from repro_torch.kernels.bucket_ring import (
+        bucket_acc, bucket_acc_hop_, bucket_acc_hop_plain_, bucket_acc_plain,
+        bucket_ring_sum, bucket_ring_sum_plain)
+    out = {"bucket_acc": [], "bucket_ring_sum": []}
+    shape = BSUM_CASES[0]
+    for i, scrub in enumerate((False, True)):
+        q, sc = _corrupt_stack(dev, shape, 70 + i, scrub)
+        tag = "scrubbed" if scrub else "unscrubbed"
+        acc = torch.randn(q.shape, generator=torch.Generator(
+            device=dev).manual_seed(i), device=dev)
+        flat = (q.flatten(0, 1), sc.flatten(0, 1), acc.flatten(0, 1))
+        got = bucket_acc(flat[2], flat[0], flat[1])
+        ref = bucket_acc_plain(flat[2], flat[0], flat[1])
+        torch.cuda.synchronize()
+        check(_same_values(got, ref), f"fault B3 {tag}: out of place differs")
+        a, r = torch.full(q.shape, float("nan"), device=dev), acc.clone()
+        for hop in range(shape[0]):
+            bucket_acc_hop_(a, q, sc, hop)
+            bucket_acc_hop_plain_(r, q, sc, hop)
+            torch.cuda.synchronize()
+            check(_same_values(a, r), f"fault B3 {tag}: hop {hop} differs")
+        s_got, s_ref = bucket_ring_sum(q, sc), bucket_ring_sum_plain(q, sc)
+        torch.cuda.synchronize()
+        check(_same_values(s_got, s_ref), f"fault B4 {tag}: differs")
+        # the scrubbed scales are finite; the unscrubbed NaN reaches the sum
+        check(bool(torch.isfinite(sc).all()) if scrub
+              else bool(torch.isnan(s_got).any()),
+              f"fault B4 {tag}: the corrupt payload is not as built")
+        case = dict(shape=list(shape), payload=tag, hops=shape[0],
+                    nan_out=int(torch.isnan(a).sum()), max_abs_err=0.0)
+        out["bucket_acc"].append(case)
+        out["bucket_ring_sum"].append(dict(case, nan_out=int(
+            torch.isnan(s_got).sum())))
+    for j, leaf in enumerate(LEAF_STACKS):
+        gen, q, sc = _payload(dev, leaf, 75 + j)
+        a = torch.full(leaf, float("nan"), device=dev)
+        r = torch.full(leaf, float("nan"), device=dev)
+        for hop in range(leaf[0]):
+            bucket_acc_hop_(a, q, sc, hop)
+            bucket_acc_hop_plain_(r, q, sc, hop)
+        torch.cuda.synchronize()
+        check(_same_values(a, r), f"leaf B3 {list(leaf)}: the hop chain "
+                                  f"differs from its plain version")
+        out["bucket_acc"].append(dict(shape=list(leaf), payload="leaf stack",
+                                      hops=leaf[0], max_abs_err=0.0))
+    log(f"fault ring kernels: bucket_acc (both entry points) and "
+        f"bucket_ring_sum bit for bit on {shape} corrupted payloads, "
+        f"scrubbed and not, and bucket_acc_hop_ hops 0..{W - 1} on the leaf "
+        f"stacks {[list(x) for x in LEAF_STACKS]}")
+    return out
+
+
+def _mesh_obs(res):
+    """Per-step telemetry of a toy_mesh_train run as floats."""
+    return [{k: float(v) for k, v in o.items()} for o in res["obs"]]
+
+
+def leaf_mesh_phase(dev):
+    """The leaf wire at the mesh phase's configuration: every variant, 20
+    steps; the loss falls (dore: first descends) and bucket_acc launches W
+    times a leaf a communicating step for every compressing variant."""
+    from repro_torch import experiments as ex
+    from repro_torch.core import dist
+    out = {}
+    n_leaves = 2 * 12 + 1
+    for variant in dist.VARIANTS:
+        res = ex.toy_mesh_train(variant, "pipelined", steps=MESH_STEPS,
+                                n_workers=W, wire="leaf", device=dev)
+        first, last = res["losses"][0], res["losses"][-1]
+        check(all(math.isfinite(x) for x in res["losses"]),
+              f"mesh leaf {variant}: non-finite loss in {res['losses']}")
+        fell = (min(res["losses"]) if variant == "dore" else last) < first
+        check(fell, f"mesh leaf {variant}: loss {first} -> {last} did not "
+                    f"fall")
+        compresses = dist.DistConfig(variant=variant).up_compress
+        want = W * n_leaves * res["comm_steps"] if compresses else 0
+        got = res["launches"]
+        check(got == {"bucket_acc": want, "bucket_ring_sum": 0},
+              f"mesh leaf {variant}: launches {got}, expected bucket_acc "
+              f"{want}")
+        out[variant] = {k: v for k, v in res.items()
+                        if k not in ("params", "obs")}
+        log(f"mesh leaf {variant}: loss {first:.6f} -> {last:.6f}, "
+            f"{res['us_per_step']:.1f} us per step, launches {got}")
+    return out
+
+
+def _wide_model(dev):
+    import torch
+    from repro_torch.models.toy import ToyMLP
+    model = ToyMLP(12, 1024).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    return model, params, model.batch(gen, n=4 * W)
+
+
+def _wide_run(dev, dcfg, label):
+    """2 warm-up and WIDE_STEPS timed steps of ToyMLP(12, 1024) under
+    ``dcfg``, artemis, sgd(0.01), W = 8, under the profiler."""
+    import torch
+    from repro_torch.core import dist
+    from repro_torch.kernels.bucket_ring import bucket_acc
+    from repro_torch.optim import sgd
+    model, params, batch = _wide_model(dev)
+    init_state, step_fn = dist.make_train_step(model, sgd(0.01), dcfg, W,
+                                               device=dev)
+    state = init_state(params)
+    for _ in range(2):
+        state, (loss0, _) = step_fn(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    a0 = bucket_acc.launches
+    losses = []
+
+    def run():
+        nonlocal state
+        for _ in range(WIDE_STEPS):
+            state, (loss, _) = step_fn(state, batch)
+            losses.append(loss)
+
+    wall_us, dev_us, busy, n_ops, top = profiled(run)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: non-finite loss {losses}")
+    out = {"us_per_step": wall_us / WIDE_STEPS, "busy_share": busy,
+           "device_us_per_step": dev_us / WIDE_STEPS,
+           "device_ops_per_step": n_ops / WIDE_STEPS, "top": top,
+           "launches": bucket_acc.launches - a0, "peak_bytes": peak,
+           "loss0": float(loss0), "losses": losses}
+    log(f"{label}: {WIDE_STEPS} steps: {out['us_per_step']:.1f} us per "
+        f"step, device busy {out['device_us_per_step']:.1f} us per step, "
+        f"share {_fmt_share(busy)}, {out['device_ops_per_step']:.1f} device "
+        f"ops per step, loss {float(loss0):.6f} -> {losses[-1]:.6f}, peak "
+        f"memory {peak} bytes, bucket_acc launches {out['launches']}")
+    log_top(top)
+    return out
+
+
+def wide_leaf_phase(dev):
+    """ToyMLP(12, 1024) on the default leaf wire; its wire bytes against
+    the port's leaf_wire_model exactly."""
+    from repro_torch.core import dist
+    from repro_torch.launch import roofline
+    from repro_torch.optim import sgd
+    dcfg = dist.DistConfig(variant="artemis", wire="leaf")
+    out = _wide_run(dev, dcfg, "wide leaf")
+    check(out["losses"][-1] < out["loss0"],
+          f"wide leaf: loss {out['loss0']} -> {out['losses']} did not fall")
+    check(out["launches"] == W * 25 * WIDE_STEPS,
+          f"wide leaf: bucket_acc launched {out['launches']}, expected "
+          f"{W * 25 * WIDE_STEPS}")
+    model, params, batch = _wide_model(dev)
+    tcfg = dist.DistConfig(variant="artemis", wire="leaf", telemetry=True)
+    init_state, step_fn = dist.make_train_step(model, sgd(0.01), tcfg, W,
+                                               device=dev)
+    _, (_, metrics) = step_fn(init_state(params), batch)
+    shapes = [tuple(p.shape) for p in params.values()]
+    model_b = roofline.leaf_wire_model(shapes, n_workers=W,
+                                       codec=tcfg.wire_codec(1024))
+    per_worker = metrics["obs"]["wire_bytes"] / W
+    check(per_worker == model_b["wire_bytes_per_step"],
+          f"wide leaf: {per_worker} wire bytes a worker a step, the model "
+          f"says {model_b['wire_bytes_per_step']}")
+    bucketed = dist.DistConfig(variant="artemis").layout(shapes)
+    model_bk = roofline.bucketed_wire_model(
+        n_workers=W, n_buckets=bucketed.n_buckets, rows=bucketed.rows,
+        row=bucketed.row)
+    out.update(wire_bytes_per_worker=per_worker,
+               bucketed_wire_bytes_per_worker=model_bk[
+                   "wire_bytes_per_step"], leaves=len(shapes),
+               params=sum(p.numel() for p in params.values()))
+    log(f"wide leaf: {out['params']} parameters in {len(shapes)} leaves, "
+        f"{per_worker:.0f} wire bytes a worker a step (leaf_wire_model "
+        f"{model_b['wire_bytes_per_step']:.0f}; the bucketed wire "
+        f"{model_bk['wire_bytes_per_step']:.0f})")
+    return out
+
+
+# the reference's fault matrix (tests/helpers/bucket_scenarios.py::
+# scenario_fault_matrix), each with scrubbing
+MESH_FAULTS = {"bitflip": dict(bitflip_rate=0.02, scrub=True),
+               "nan_blowup": dict(blowup_rate=0.5, scrub=True),
+               "dropout_burst": dict(straggler_rate=0.5, p_stay=0.8,
+                                     scrub=True)}
+
+
+def mesh_fault_phase(dev):
+    """The fault matrix on both wires at the mesh configuration, p = 0.5,
+    20 steps, with telemetry (and the bit-flip cell on the bucketed psum,
+    B4 under faults): every loss and parameter finite, the telemetry's
+    counts non-zero and below their bounds where the config makes them so,
+    and FaultConfig() the same bits as faults=None on both wires."""
+    import torch
+    from repro_torch import experiments as ex
+    from repro_torch.core import dist, faults
+    out = {}
+    n_buckets = 16
+    runs = [(w, name, "pipelined") for w in dist.WIRES
+            for name in MESH_FAULTS] + [("bucketed", "bitflip", "psum")]
+    for wire, name, impl in runs:
+        fc = faults.FaultConfig(**MESH_FAULTS[name])
+        res = ex.toy_mesh_train("artemis", impl, steps=MESH_STEPS,
+                                n_workers=W, p_participation=0.5, wire=wire,
+                                faults=fc, telemetry=True, device=dev)
+        label = f"mesh faults {wire}/{impl} {name}"
+        check(all(math.isfinite(x) for x in res["losses"]),
+              f"{label}: non-finite loss {res['losses']}")
+        check(all(bool(torch.isfinite(p).all())
+                  for p in res["params"].values()),
+              f"{label}: non-finite parameters")
+        obs = _mesh_obs(res)
+        tot = {k: sum(o[k] for o in obs) for k in obs[0]}
+        units = n_buckets if wire == "bucketed" else 25
+        check(all(0 <= o["mesh_active"] <= W for o in obs)
+              and 0 < tot["mesh_active"] < W * len(obs),
+              f"{label}: mesh_active {[o['mesh_active'] for o in obs]}")
+        check(all(o["mesh_blowup_hits"] <= W for o in obs)
+              and (tot["mesh_blowup_hits"] > 0) == (name == "nan_blowup"),
+              f"{label}: blowup hits {tot['mesh_blowup_hits']}")
+        check(all(o["mesh_scrubbed"] <= W * units for o in obs)
+              and (tot["mesh_scrubbed"] > 0) == (name == "bitflip"),
+              f"{label}: scrubbed {tot['mesh_scrubbed']}")
+        out[f"{wire}/{impl}/{name}"] = dict(
+            losses=res["losses"], us_per_step=res["us_per_step"],
+            launches=res["launches"], obs_totals=tot)
+        log(f"{label}: loss {res['losses'][0]:.6f} -> "
+            f"{res['losses'][-1]:.6f}, {res['us_per_step']:.1f} us per "
+            f"step, obs totals {json.dumps(tot)}, launches "
+            f"{res['launches']}")
+    for wire in dist.WIRES:
+        runs = [ex.toy_mesh_train("artemis", steps=MESH_STEPS, n_workers=W,
+                                  p_participation=0.5, wire=wire, faults=fc,
+                                  device=dev)
+                for fc in (None, faults.FaultConfig())]
+        check(runs[0]["losses"] == runs[1]["losses"]
+              and all(torch.equal(p, runs[1]["params"][k])
+                      for k, p in runs[0]["params"].items()),
+              f"mesh faults {wire}: FaultConfig() differs from faults=None")
+    log("mesh faults: FaultConfig() equals faults=None bit for bit on both "
+        "wires")
+    return out
+
+
+def wide_faulted_phase(dev, clean):
+    """The wide bucketed step under bit flips and scrubbing, beside the
+    clean wide step of the same run."""
+    from repro_torch.core import dist, faults
+    dcfg = dist.DistConfig(variant="artemis", faults=faults.FaultConfig(
+        bitflip_rate=0.01, scrub=True))
+    out = _wide_run(dev, dcfg, "wide faulted")
+    log(f"wide faulted: {out['us_per_step']:.1f} us and "
+        f"{out['device_ops_per_step']:.1f} device ops per step, against the "
+        f"clean wide step's {clean['us_per_step']:.1f} us and "
+        f"{clean['device_ops_per_step']:.1f}")
+    return out
+
+
+PG_WORLD, PG_STEPS = 4, 5
+PG_CASES = ("pipelined", "sequential", "psum")
+
+
+def _pg_rank(rank, world, out_dir, device):
+    """A rank of the process-group ring on the card: ToyMLP(12, 1024),
+    artemis, default DistConfig, PG_STEPS steps of every reduce_impl on its
+    rows of the batch, recording its gradients (for the simulated axis's
+    replay), its bytes sent and its µs per step."""
+    import torch
+    from repro_torch.core import dist, dist_pg
+    from repro_torch.kernels.bucket_ring import bucket_acc
+    from repro_torch.optim import sgd
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    model, params, batch = _wide_model(dev)
+    rows = {k: v.reshape((world, -1) + tuple(v.shape[1:]))[rank]
+            for k, v in batch.items()}
+    out = {}
+    for case in PG_CASES:
+        recorded = []
+        base = dist_pg.rank_grads(model)
+
+        def grad_fn(p, b):
+            res = base(p, b)
+            recorded.append({k: v.detach().clone() for k, v in
+                             res[0].items()})
+            return res
+
+        dcfg = dist.DistConfig(variant="artemis", reduce_impl=case)
+        init_state, step_fn = dist_pg.make_train_step(
+            model, sgd(0.01), dcfg, device=dev, grad_fn=grad_fn)
+        state, times = init_state(params), []
+        a0 = bucket_acc.launches
+        for _ in range(PG_STEPS):
+            t0 = time.perf_counter()
+            state, (loss, _) = step_fn(state, rows)
+            float(loss)                 # the step's end: its loss on the host
+            times.append(time.perf_counter() - t0)
+        out[case] = {"params": {k: v.cpu() for k, v in state.params.items()},
+                     "grads": [{k: v.cpu() for k, v in g.items()}
+                               for g in recorded], "loss": float(loss),
+                     "bytes_sent": step_fn.ring.bytes_sent,
+                     "staged": step_fn.ring.staged,
+                     "us_per_step": statistics.median(times) * 1e6,
+                     "launches": bucket_acc.launches - a0}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _gloo_cuda_probe(rank, world, out_dir):
+    """Does gloo's send and receive move a CUDA tensor? Rank 0 sends a
+    known CUDA tensor to rank 1, which receives into a CUDA tensor."""
+    import torch
+    import torch.distributed as tdist
+    x = torch.arange(1024, dtype=torch.float32, device="cuda")
+    res = {}
+    try:
+        if rank == 0:
+            tdist.send(x, 1)
+        else:
+            y = torch.zeros_like(x)
+            tdist.recv(y, 0)
+            torch.cuda.synchronize()
+            res["equal"] = bool(torch.equal(x, y))
+        res["ok"] = True
+    except RuntimeError as exc:
+        res = {"ok": False, "error": f"{type(exc).__name__}: {exc}"[:300]}
+    torch.save(res, os.path.join(out_dir, f"probe{rank}.pt"))
+
+
+def pg_phase(dev):
+    """W = 4 ranks of the torch.distributed ring on the one card (gloo):
+    rank 0 against the simulated axis over the same draws and the ranks'
+    gradients (pipelined and sequential bit for bit, psum to 1e-5), bytes
+    sent per rank per step against (W - 1) times the codec's wire bytes,
+    µs per step, and whether payloads were staged through the host."""
+    import shutil
+    import torch
+    from repro_torch.core import dist, dist_pg
+    from repro_torch.optim import sgd
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_pg")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        codes = dist_pg.launch(_gloo_cuda_probe, 2, (out_dir,), timeout=30)
+        probe = [torch.load(os.path.join(out_dir, f"probe{r}.pt"))
+                 if code == 0 else {"ok": False, "exit": code}
+                 for r, code in enumerate(codes)]
+        takes = all(p.get("ok") for p in probe) and probe[1].get("equal")
+        out["gloo_takes_cuda"] = bool(takes)
+        log(f"pg ring: gloo send/recv of a CUDA tensor: "
+            f"{'moves it' if takes else 'does not move it'} ({probe}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        rank_dev = str(torch.device(dev.type, dev.index or 0))
+        codes = dist_pg.launch(_pg_rank, PG_WORLD, (out_dir, rank_dev),
+                               backend="gloo", timeout=600)
+        check(codes == [0] * PG_WORLD, f"pg ring: rank exit codes {codes}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+                 for r in range(PG_WORLD)]
+        out["launch_s"] = time.perf_counter() - t0
+        log(f"pg ring: {PG_WORLD} ranks ran and wrote their results in "
+            f"{out['launch_s']:.1f} s")
+        model, params, batch = _wide_model(dev)
+        plist = list(params.values())
+        for case in PG_CASES:
+            dcfg = dist.DistConfig(variant="artemis", reduce_impl=case)
+            lay = dcfg.layout(plist)
+            per_hop = sum(dcfg.wire_codec(lay.row).wire_bytes(
+                (lay.n_buckets * lay.rows, lay.row)).values())
+            k = [0]
+
+            def grad_fn(p, split):
+                g = {name: torch.stack([r[case]["grads"][k[0]][name]
+                                        for r in ranks]).to(dev)
+                     for name in p}
+                k[0] += 1
+                z = torch.zeros(PG_WORLD, device=dev)
+                return g, (z, {"nll": z, "aux": z})
+
+            init_state, step_fn = dist.make_train_step(
+                model, sgd(0.01), dcfg, PG_WORLD, device=dev,
+                grad_fn=grad_fn)
+            state = init_state(params)
+            for _ in range(PG_STEPS):
+                state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+            r0 = ranks[0][case]["params"]
+            diff = max(float((r0[n].to(dev) - p).abs().max())
+                       for n, p in state.params.items())
+            same = all(torch.equal(r0[n].to(dev), p)
+                       for n, p in state.params.items())
+            if case == "psum":
+                check(diff <= 1e-5, f"pg ring psum: rank 0 differs from the "
+                                    f"simulated axis by {diff}")
+            else:
+                check(same, f"pg ring {case}: rank 0 differs from the "
+                            f"simulated axis (max |diff| {diff})")
+            sent = [r[case]["bytes_sent"] for r in ranks]
+            want = PG_STEPS * (PG_WORLD - 1) * per_hop
+            if case != "psum":
+                check(sent == [want] * PG_WORLD,
+                      f"pg ring {case}: bytes sent {sent}, expected {want}")
+            out[case] = {
+                "us_per_step": [r[case]["us_per_step"] for r in ranks],
+                "staged": ranks[0][case]["staged"],
+                "bytes_sent_per_step": sent[0] / PG_STEPS,
+                "wire_bytes_per_hop": per_hop, "max_abs_diff": diff,
+                "bit_for_bit": same,
+                "launches": sum(r[case]["launches"] for r in ranks)}
+            log(f"pg ring {case}: rank 0 vs the simulated axis "
+                f"{'bit for bit' if same else f'max |diff| {diff:.3g}'}; "
+                f"{sent[0] / PG_STEPS:.0f} bytes sent per rank per step "
+                f"((W - 1) x {per_hop}); us per step "
+                f"{[round(x, 1) for x in out[case]['us_per_step']]}; "
+                f"payloads staged through the host: "
+                f"{ranks[0][case]['staged']}; bucket_acc launches "
+                f"{out[case]['launches']}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out["launches"] = sum(out[c]["launches"] for c in PG_CASES)
+    return out
+
+
+def telemetry_grid_phase(dev, clean):
+    """The clean 640-cell grid with the sweep's telemetry: losses, distances
+    and bits bit for bit with ``clean`` (the grid phase's SweepResult);
+    µs per round per cell with and without, and the device ops a round the
+    telemetry adds (20 rounds of one variant's 128 cells, profiled)."""
+    import numpy as np
+    from repro_torch import experiments as ex
+    t0 = time.perf_counter()
+    res = ex.fig4_bits(device=dev, gamma_mults=GRID_MULTS, seeds=GRID_SEEDS,
+                       telemetry=True)
+    secs = time.perf_counter() - t0
+    sweep = res.pop("sweep")
+    for f in ("losses", "dists", "bits", "w_final", "rollbacks"):
+        check(np.array_equal(getattr(sweep, f), getattr(clean["sweep"], f),
+                             equal_nan=True),
+              f"telemetry grid: {f} differs from the grid without it")
+    tel = sweep.telemetry
+    check(tel is not None and tel["avail"].shape == sweep.losses.shape,
+          "telemetry grid: no telemetry of the grid's shape")
+    check(np.isfinite(tel["err_up"]).all() and (tel["uplink_bits"] > 0).any(),
+          "telemetry grid: the readings are not finite or empty")
+    prof_on = profile_phase(dev, telemetry=True)
+    out = {"us_per_round_cell": res["us_per_round_cell"],
+           "clean_us_per_round_cell": clean["us_per_round_cell"],
+           "seconds": secs, "profile": prof_on}
+    log(f"telemetry grid: bit for bit with the clean grid; us per round "
+        f"per cell {res['us_per_round_cell']:.3f} against "
+        f"{clean['us_per_round_cell']:.3f} without; device ops per round "
+        f"{prof_on['device_ops_per_round']:.1f}")
+    return out
+
+
+def obs_smoke_phase():
+    """``python -m repro_torch.obs smoke`` on the card, then the CLI's
+    ``validate`` (in this process) on the events it wrote; the directory is
+    removed after."""
+    import shutil
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_obs")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    try:
+        t0 = time.perf_counter()
+        smoke = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs", "smoke", "-o",
+             out_dir], capture_output=True, text=True, timeout=300, env=env,
+            cwd=ROOT)
+        secs = time.perf_counter() - t0
+        check(smoke.returncode == 0, f"obs smoke failed: "
+                                     f"{smoke.stdout[-1500:]}"
+                                     f"{smoke.stderr[-1500:]}")
+        from repro_torch.obs import __main__ as obs_cli
+        rc = obs_cli.main(["validate", os.path.join(out_dir, "events.jsonl")])
+        check(rc == 0, f"obs validate returned {rc}")
+        log(f"obs smoke ({secs:.1f} s): "
+            f"{' | '.join(smoke.stdout.strip().splitlines()[-3:])}; "
+            f"validate returned {rc}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"seconds": secs}
 
 
 def kernel_line(cases, launches):
@@ -1500,6 +2083,7 @@ def main():
     fused, ring, wsum = kernel_phase(dev)
     fault_fused, fault_ring = fault_kernel_phase(dev)
     acc, bsum = mesh_kernel_phase(dev)
+    ring_faults = fault_ring_kernel_phase(dev)
     codec_phase(dev)
     reset_launches()                    # the simulator's path starts here
     slice_res = slice_phase(dev)
@@ -1507,6 +2091,14 @@ def main():
     sim = {"fused_memory_update": fused_memory_update.launches,
            "ring_sum": ring_sum.launches, "worker_sum": worker_sum.launches}
     profile_clean = profile_phase(dev)
+    reset_launches()                    # the simulator with telemetry
+    t_tel = time.perf_counter()
+    tel_res = telemetry_grid_phase(dev, grid_res)
+    grid_res.pop("sweep")
+    tel = {"fused_memory_update": fused_memory_update.launches,
+           "ring_sum": ring_sum.launches, "worker_sum": worker_sum.launches}
+    log(f"telemetry path launches: {json.dumps(tel)}")
+    tel_secs = time.perf_counter() - t_tel
     reset_launches()                    # the fault path starts here
     t_fault = time.perf_counter()
     fault_res = fault_phase(dev)
@@ -1519,15 +2111,47 @@ def main():
                                  f"times: {flt}")
     profile_fault = profile_phase(dev, GRID_FAULTS)
     fault_secs = time.perf_counter() - t_fault
-    launches = {k: sim[k] + flt[k] for k in sim}
-    by_path = {k: {"simulator": sim[k], "faults": flt[k]} for k in sim}
+    launches = {k: sim[k] + flt[k] + tel[k] for k in sim}
+    by_path = {k: {"simulator": sim[k], "faults": flt[k], "telemetry": tel[k]}
+               for k in sim}
+
+    def mesh_counts():
+        return {"bucket_acc": bucket_acc.launches,
+                "bucket_ring_sum": bucket_ring_sum.launches}
+
     reset_launches()                    # the mesh's path starts here
     t_mesh = time.perf_counter()
     mesh_res = mesh_phase(dev)
     wide_res = wide_phase(dev)
-    launches.update(bucket_acc=bucket_acc.launches,
-                    bucket_ring_sum=bucket_ring_sum.launches)
+    mesh_l = mesh_counts()
     mesh_secs = time.perf_counter() - t_mesh
+    reset_launches()                    # the leaf wire's path
+    t_leaf = time.perf_counter()
+    leaf_mesh_phase(dev)
+    wide_leaf = wide_leaf_phase(dev)
+    leaf_l = mesh_counts()
+    check(leaf_l["bucket_acc"] > 0, f"the leaf path launched {leaf_l}")
+    leaf_secs = time.perf_counter() - t_leaf
+    reset_launches()                    # the mesh's fault path
+    t_mflt = time.perf_counter()
+    mesh_fault_phase(dev)
+    wide_flt = wide_faulted_phase(dev, wide_res)
+    mflt_l = mesh_counts()
+    check(min(mflt_l.values()) > 0, f"the mesh's fault path launched "
+                                     f"{mflt_l}")
+    mflt_secs = time.perf_counter() - t_mflt
+    t_pg = time.perf_counter()
+    pg_res = pg_phase(dev)              # the ranks count their own launches
+    pg_secs = time.perf_counter() - t_pg
+    check(pg_res["launches"] > 0, "the pg ring launched bucket_acc 0 times")
+    for k in ("bucket_acc", "bucket_ring_sum"):
+        pg_k = pg_res["launches"] if k == "bucket_acc" else 0
+        launches[k] = mesh_l[k] + leaf_l[k] + mflt_l[k] + pg_k
+        by_path[k] = {"mesh": mesh_l[k], "leaf": leaf_l[k],
+                      "mesh_faults": mflt_l[k], "pg_ring": pg_k}
+    log(f"mesh paths launches: {json.dumps(by_path['bucket_acc'])} "
+        f"bucket_acc, {json.dumps(by_path['bucket_ring_sum'])} "
+        f"bucket_ring_sum")
     t_ops = time.perf_counter()
     enc, dec, app, fused_tiles = ops_kernel_phase(dev)
     reset_launches()                    # the compression API's path
@@ -1562,9 +2186,28 @@ def main():
         f"(busy share {wide_res['busy_share']})")
     log(f"us per step, ops compressed sgd: {ops_res['us_per_step']:.1f} "
         f"(busy share {ops_res['busy_share']})")
-    log(f"fault phases {fault_secs:.1f} s; mesh phases {mesh_secs:.1f} s; "
-        f"ops phases {ops_secs:.1f} s; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+    log(f"us per step, wide leaf artemis: {wide_leaf['us_per_step']:.1f} "
+        f"({wide_leaf['device_ops_per_step']:.1f} device ops, device "
+        f"{wide_leaf['device_us_per_step']:.1f} us); wide bucketed "
+        f"{wide_res['us_per_step']:.1f} ({wide_res['device_ops_per_step']:.1f}"
+        f" device ops, device {wide_res['device_us_per_step']:.1f} us); "
+        f"wide faulted {wide_flt['us_per_step']:.1f} "
+        f"({wide_flt['device_ops_per_step']:.1f} device ops)")
+    log(f"us per step, pg ring (W = {PG_WORLD}, gloo): " + ", ".join(
+        f"{c} {statistics.median(pg_res[c]['us_per_step']):.1f}"
+        for c in PG_CASES) + f"; staged through the host: "
+        f"{pg_res['pipelined']['staged']}")
+    log(f"us per round per cell, telemetry grid: "
+        f"{tel_res['us_per_round_cell']:.3f} against "
+        f"{tel_res['clean_us_per_round_cell']:.3f}; device ops per round "
+        f"{tel_res['profile']['device_ops_per_round']:.1f} against "
+        f"{profile_clean['device_ops_per_round']:.1f}")
+    obs_res = obs_smoke_phase()
+    log(f"fault phases {fault_secs:.1f} s; telemetry grid {tel_secs:.1f} s; "
+        f"mesh phases {mesh_secs:.1f} s; leaf phases {leaf_secs:.1f} s; "
+        f"mesh fault phases {mflt_secs:.1f} s; pg ring {pg_secs:.1f} s; "
+        f"ops phases {ops_secs:.1f} s; obs smoke {obs_res['seconds']:.1f} s; "
+        f"total {time.perf_counter() - t_start:.1f} s")
     line = kernel_line(
         {"fused_memory_update": fused + fused_tiles, "ring_sum": ring,
          "worker_sum": wsum,
@@ -1574,8 +2217,8 @@ def main():
         if entry["name"] in by_path:
             entry["launches_by_path"] = by_path[entry["name"]]
         entry["fault_cases"] = {"fused_memory_update": [fault_fused],
-                                "ring_sum": [fault_ring]}.get(
-                                    entry["name"], [])
+                                "ring_sum": [fault_ring],
+                                **ring_faults}.get(entry["name"], [])
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

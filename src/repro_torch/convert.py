@@ -53,8 +53,10 @@ def toy_params(params, *, device=None):
 
 def dist_state(h, hbar, e, acc, prev_active, step, *,
                device=None) -> ArtemisDistState:
-    """An ``ArtemisDistState`` from the reference's bucketed mesh state
-    (``[W, B, R, C]`` stacks or ``[W]`` stubs, a replicated ``hbar``)."""
+    """An ``ArtemisDistState`` from the reference's mesh state: on the
+    bucketed wire ``[W, B, R, C]`` stacks or ``[W]`` stubs and a replicated
+    ``hbar``; on the leaf wire the same per parameter leaf, each field a
+    list in flatten order (``jax.tree.leaves`` of the reference's trees)."""
     dev = default_device(device)
 
     def memory(a):
@@ -63,7 +65,13 @@ def dist_state(h, hbar, e, acc, prev_active, step, *,
               else torch.float32)
         return _tensor(np.asarray(a, np.float32), dev).to(dt)
 
-    return ArtemisDistState(h=memory(h), hbar=memory(hbar),
-                            e=_tensor(e, dev), acc=_tensor(acc, dev),
+    def each(fn, x):
+        return [fn(a) for a in x] if isinstance(x, (list, tuple)) else fn(x)
+
+    def plain(a):
+        return _tensor(a, dev)
+
+    return ArtemisDistState(h=each(memory, h), hbar=each(memory, hbar),
+                            e=each(plain, e), acc=each(plain, acc),
                             prev_active=_tensor(prev_active, dev),
                             step=int(np.asarray(step)))

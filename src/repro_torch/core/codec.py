@@ -304,7 +304,8 @@ def _tile_squant_codec(d: int, s: int = 1, tile: int = 1024, **_) -> Codec:
 def row_squant_encode(x: torch.Tensor, u: torch.Tensor, s: int):
     """Per-row (last axis) stochastic s-quantization -> (levels int8,
     scales f32 = norm/s, keepdims).  A non-finite row ships a 0 scale so that
-    its decode is exactly 0 (the clamp of ``kernels/fused_memory.py``)."""
+    its decode is exactly 0 (the clamp of ``kernels/fused_memory.py``), and
+    its levels convert to int8 as XLA's do (NaN to 0, saturating)."""
     xf = x.to(torch.float32)
     norm = l2_norm(xf, fused=False)[..., None]   # square, then sum
     scale = torch.where(torch.isfinite(norm), norm / s,
@@ -313,7 +314,11 @@ def row_squant_encode(x: torch.Tensor, u: torch.Tensor, s: int):
     r = xf.abs() / safe * s
     low = torch.floor(r)
     psi = low + (u.to(torch.float32) < (r - low)).to(torch.float32)
-    q = (torch.sign(xf) * psi).to(torch.int8)
+    qf = torch.sign(xf) * psi
+    # int8 as XLA converts: NaN to 0, out of range saturated (only a row
+    # with a NaN norm, where safe is 1, can leave [-(s+1), s+1])
+    q = torch.where(torch.isnan(qf), torch.zeros_like(qf),
+                    qf.clamp(-128.0, 127.0)).to(torch.int8)
     return q, scale
 
 

@@ -18,9 +18,9 @@ and its hit uniform (``u``; the element is hit where ``u < rate``, which is
 the reference's Bernoulli draw).  A payload's draws come one pair per leaf
 in sorted-key order (``core/noise.py``).
 
-The simulator runs every fault (``core/artemis.py``, ``core/sweep.py``);
-the mesh wire runs the zero-fault config only (``check_zero``), its faulted
-aggregate being ROADMAP.md A7, queued with the A10 slice.
+Both paths run every fault: the simulator (``core/artemis.py``,
+``core/sweep.py``) and the mesh wire on both of its wires
+(``core/dist.py``, ``core/dist_pg.py``).
 """
 from __future__ import annotations
 
@@ -32,9 +32,6 @@ import torch
 # the reference's salt for its fault key streams; the port's noise sources
 # seed their fault draws outside the base draws' seed range instead
 FAULT_SALT = 0x6F175EED
-
-NOT_PORTED = ("fault injection on the mesh wire is not ported yet; see "
-              "ROADMAP.md A7 (queued with A10)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,12 +81,6 @@ ZERO = FaultConfig()
 def of(fc: Optional[FaultConfig]) -> FaultConfig:
     """None-safe accessor: ``faults=None`` is the all-off config."""
     return ZERO if fc is None else fc
-
-
-def check_zero(fc: Optional[FaultConfig]) -> None:
-    """Raise for any enabled fault (the mesh wire runs the zero config)."""
-    if of(fc).enabled:
-        raise NotImplementedError(NOT_PORTED)
 
 
 # ---------------------------------------------------------------------------
@@ -240,8 +231,9 @@ def apply_blowup(fc: FaultConfig, hit: torch.Tensor,
                  grads: torch.Tensor) -> torch.Tensor:
     """Replace the hit workers' gradients (``hit`` on grads' leading axes,
     [..., N] against [..., N, d]) with ``blowup_value``."""
-    value = torch.tensor(fc.blowup_value, dtype=torch.float32,
-                         device=grads.device).to(grads.dtype)
+    # a fill on the device, not a copy from the host (which would wait)
+    value = torch.full((), fc.blowup_value, dtype=torch.float32,
+                       device=grads.device).to(grads.dtype)
     return torch.where(_lead_broadcast(hit, grads), value, grads)
 
 

@@ -22,15 +22,21 @@ and wire draws on that step; ``TorchNoise`` keys every draw on the round
 alone and ignores it.  A source that uses it returns ``u_up``, ``u_dwn``
 and ``flips`` per cell, with a leading axis of G * S in place of S.
 
+The mesh's ``step(k)`` returns a ``MeshDraws`` for communicating step k:
+per-worker uplink uniforms, participation uniforms and the shared downlink
+uniforms, on the bucket stack or per parameter leaf; with ``faults=True``
+also the straggler and blowup uniforms and the bit flips of every wire
+message (the reference's ``dist._round_keys`` chain).
+
 The interface replaces the reference's key derivation (``core/sweep.py``
-micro step and ``core/artemis.py`` round keys).  A test hands the sweep a
+micro step, ``core/artemis.py`` round keys, ``core/dist.py`` step keys).  A test hands the sweep a
 source that replays the reference's exact draws, so the port needs no
 bitwise copy of JAX's generator.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Protocol, Sequence, Tuple
+from typing import List, Optional, Protocol, Sequence, Tuple, Union
 
 import torch
 
@@ -161,15 +167,32 @@ class TorchNoise:
 
 @dataclasses.dataclass
 class MeshDraws:
-    """One communicating step's draws on the simulated mesh."""
-    u_up: torch.Tensor    # [W, B, R, C] uplink codec uniforms, per worker
+    """One communicating step's draws on the simulated mesh.
+
+    On the bucketed wire ``u_up`` is one ``[W, B, R, C]`` tensor and
+    ``u_dwn`` one ``[B, R, C]``; on the leaf wire each is a list with one
+    tensor per parameter leaf in flatten order, ``[W, *leaf shape]`` and
+    ``leaf shape``.  The fault draws are None unless asked for: the
+    straggler and blowup uniforms (``[W]``), and ``flips``, one list per
+    wire message (the bucket stack, or each parameter leaf) holding a
+    (bit int32, uniform f32) pair per payload leaf in sorted-key order, each
+    ``[W, *payload leaf shape]``."""
+    u_up: Union[torch.Tensor, List[torch.Tensor]]
     u_act: torch.Tensor   # [W] participation uniforms
-    u_dwn: torch.Tensor   # [B, R, C] downlink uniforms, shared by all workers
+    u_dwn: Union[torch.Tensor, List[torch.Tensor]]
+    u_strag: Optional[torch.Tensor] = None
+    u_blow: Optional[torch.Tensor] = None
+    flips: Optional[List[List[Tuple[torch.Tensor, torch.Tensor]]]] = None
 
 
 class MeshNoiseSource(Protocol):
-    def step(self, k: int) -> MeshDraws:
+    def step(self, k: int, *, faults: bool = False,
+             leaves: Sequence[Sequence[LeafSpec]] = ()) -> MeshDraws:
         ...
+
+
+def _is_shape(x) -> bool:
+    return all(isinstance(d, int) for d in x)
 
 
 class MeshNoise:
@@ -177,22 +200,62 @@ class MeshNoise:
     reference's ``dist._round_keys`` chain: step k's draws come from one
     ``torch.Generator`` on the run's device, seeded with
     ``seed * 2**20 + k``, so they depend on nothing but (seed, k).  The
-    downlink uniforms are one tensor for every worker: the reference's
+    downlink uniforms are one draw for every worker: the reference's
     zero-byte broadcast, where each worker compresses the identical
-    aggregate with the identical key."""
+    aggregate with the identical key.
 
-    def __init__(self, seed: int, n_workers: int,
-                 shape: Tuple[int, int, int], device):
+    ``shape`` is the bucket stack's ``[B, R, C]`` (the bucketed wire) or a
+    list of parameter-leaf shapes (the leaf wire: the uplink uniforms of
+    every leaf in turn, then the participation uniforms, then the downlink
+    uniforms of every leaf).
+
+    ``step(k, faults=True, leaves=...)`` adds the fault draws, from seeds
+    outside the base draws' range as ``TorchNoise`` seeds them
+    (``2**60 + seed * 2**20 + k`` for the straggler and blowup uniforms,
+    ``2**61 + ...`` for the flips, message by message, bits then hit
+    uniforms per payload leaf), so a run without faults draws exactly what
+    it drew before they existed.  ``leaves`` holds one sequence of
+    ``(payload leaf shape, flipped-bit range)`` per wire message, without
+    the worker axis."""
+
+    FAULT_TAG, WIRE_TAG = TorchNoise.FAULT_TAG, TorchNoise.WIRE_TAG
+
+    def __init__(self, seed: int, n_workers: int, shape, device):
         if not 0 <= int(seed) < 2**40:
             raise ValueError(f"seed must lie in [0, 2**40): {seed}")
-        self.seed, self.n, self.shape = int(seed), n_workers, tuple(shape)
+        self.seed, self.n = int(seed), n_workers
+        self.bucketed = _is_shape(shape)
+        self.shapes = ([tuple(shape)] if self.bucketed
+                       else [tuple(int(d) for d in s) for s in shape])
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device)
 
-    def step(self, k: int) -> MeshDraws:
-        gen, dev = self.gen, self.device
-        gen.manual_seed(self.seed * 2**20 + int(k))
-        u_up = torch.rand((self.n,) + self.shape, generator=gen, device=dev)
-        u_act = torch.rand(self.n, generator=gen, device=dev)
-        u_dwn = torch.rand(self.shape, generator=gen, device=dev)
-        return MeshDraws(u_up=u_up, u_act=u_act, u_dwn=u_dwn)
+    def _seed(self, tag: int, k: int) -> torch.Generator:
+        return self.gen.manual_seed(tag * 2**60 + self.seed * 2**20 + int(k))
+
+    def step(self, k: int, *, faults: bool = False,
+             leaves: Sequence[Sequence[LeafSpec]] = ()) -> MeshDraws:
+        dev, n = self.device, self.n
+        gen = self._seed(0, k)
+        u_up = [torch.rand((n,) + s, generator=gen, device=dev)
+                for s in self.shapes]
+        u_act = torch.rand(n, generator=gen, device=dev)
+        u_dwn = [torch.rand(s, generator=gen, device=dev)
+                 for s in self.shapes]
+        if self.bucketed:
+            u_up, u_dwn = u_up[0], u_dwn[0]
+        out = MeshDraws(u_up=u_up, u_act=u_act, u_dwn=u_dwn)
+        if not faults:
+            return out
+        gen = self._seed(self.FAULT_TAG, k)
+        out.u_strag = torch.rand(n, generator=gen, device=dev)
+        out.u_blow = torch.rand(n, generator=gen, device=dev)
+        if leaves:
+            gen = self._seed(self.WIRE_TAG, k)
+            out.flips = [[(torch.randint(0, bits, (n,) + tuple(shape),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32),
+                           torch.rand((n,) + tuple(shape), generator=gen,
+                                      device=dev))
+                          for shape, bits in msg] for msg in leaves]
+        return out

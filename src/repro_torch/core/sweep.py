@@ -37,9 +37,18 @@ and the carries of all variants and the eval series are saved after each
 snapshot, bit for bit, because the carry round-trips exactly and the noise
 source keeps no state in the round index.
 
+Telemetry (``telemetry=True``, DESIGN.md §11): every round's readings
+(participation, straggler and blowup counts, entry and wire scrubbing,
+the bit meters, the compression errors and the aggregate's norm) go into
+each cell's packed carry of ``obs/telemetry.py``; each eval point reads it
+out with the memory drift, the error-feedback norm and the rollbacks, as
+``SweepResult.telemetry`` ``{metric: [V, G, S, E]}`` (``[..., B]`` for the
+histogram).  The carry is not part of the sentinel's snapshot: a rollback
+leaves the counts of the rounds it undid.  With telemetry off the carry
+is never built, and the run is the same bit for bit.
+
 Nothing in the round loop waits for the device: the eval readings stay on
-the device until the end of the run (or the next snapshot).  Telemetry is
-not ported (ROADMAP.md A11).
+the device until the end of the run (or the next snapshot).
 """
 from __future__ import annotations
 
@@ -59,6 +68,8 @@ from repro_torch.core import faults
 from repro_torch.core.federated import Problem
 from repro_torch.core.noise import NoiseSource, TorchNoise
 from repro_torch.kernels.ring_sum import worker_sum
+from repro_torch.obs import spans
+from repro_torch.obs import telemetry as obs_tel
 
 
 @dataclasses.dataclass
@@ -74,7 +85,7 @@ class SweepResult:
     gamma_scale: np.ndarray     # [V, G, S]  final backoff factor on gamma
     eval_iters: np.ndarray      # [E] iteration index k of each eval point
     traces: int = 0             # the port compiles nothing
-    telemetry: Optional[dict] = None        # not ported yet: always None
+    telemetry: Optional[dict] = None  # {metric: [V, G, S, E(, B)]}
 
 
 def _fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
@@ -97,7 +108,7 @@ class _Grid:
                  gammas: torch.Tensor, n_gammas: int, iters: int,
                  eval_every: int, full_batch: bool, w0: torch.Tensor,
                  w_star: torch.Tensor, gamma_decay: bool,
-                 backend: Optional[str]):
+                 backend: Optional[str], telemetry: bool = False):
         self.problem, self.cfg, self.gammas = problem, cfg, gammas
         self.n_gammas, self.iters, self.eval_every = n_gammas, iters, \
             eval_every
@@ -133,6 +144,13 @@ class _Grid:
                 rb=torch.zeros(cells, dtype=torch.int32, device=dev),
                 good=good)
         self.losses, self.bit_series, self.dists = [], [], []
+        # the telemetry carry and readings; no part of the carry snapshot
+        self.tel = self.g_star = None
+        self.tel_series = []
+        if telemetry:
+            self.tel = obs_tel.sweep_zeros((cells,), dev)
+            # grad F_i(w*) for the memory drift, once per grid
+            self.g_star = problem.full_grad(w_star)
 
     def _tile(self, x):
         """[S, ...] seed draws -> [G * S, ...] cells (per-cell draws, from
@@ -158,21 +176,29 @@ class _Grid:
             part = faults.participation(fc, cfg.p, tile(nz.u_act), prev_act,
                                         k)
             active = part
+            tel = {}
             if fc.straggler_rate > 0.0:
                 # available, but missed the round's deadline
+                avail = active
                 active = active * (tile(nz.u_strag) >= fc.straggler_rate
                                    ).to(active.dtype)
+                tel["straggler_drops"] = avail.sum(-1) - active.sum(-1)
             if fc.blowup_rate > 0.0:
-                grads = faults.inject_blowup(fc, tile(nz.u_blow), grads)
+                hit = faults.blowup_mask(fc, tile(nz.u_blow))
+                grads = faults.apply_blowup(fc, hit, grads)
+                tel["blowup_hits"] = hit.to(torch.float32).sum(-1)
             if fc.scrub:
                 # a non-finite gradient masks its worker before any
                 # arithmetic, and is zeroed (0 * NaN is NaN)
+                pre_scrub = active
                 active = active * torch.isfinite(grads).all(-1).to(
                     active.dtype)
                 grads = faults.nan_to_zero(grads)
+                tel["entry_scrub_drops"] = (pre_scrub.sum(-1)
+                                            - active.sum(-1))
             flips = (None if nz.flips is None
                      else [(tile(b), tile(u)) for b, u in nz.flips])
-            omega, st, _ = art.artemis_round(
+            omega, st, stats = art.artemis_round(
                 cfg, st, grads, tile(nz.u_up), tile(nz.u_dwn), active,
                 backend=self.backend, flips=flips)
             prev_act = part
@@ -189,6 +215,15 @@ class _Grid:
             wsum = wsum + w
             wtail = wtail + (1.0 if k >= iters // 2 else 0.0) * w
             bits = bits + _fma(active.sum(-1), self.up_bits, catch)
+            if self.tel is not None:
+                self.tel = obs_tel.sweep_accumulate(self.tel, obs_tel.sweep_round(
+                    avail=part.sum(-1), active=active.sum(-1),
+                    wire_scrubbed=stats["wire_scrubbed"],
+                    uplink_bits=stats["uplink_bits"],
+                    dwnlink_bits=stats["dwnlink_bits"], catchup_bits=catch,
+                    err_up=stats["compress_err_up"],
+                    err_dwn=stats["compress_err_dwn"],
+                    ghat_norm=stats["ghat_norm"], **tel))
             if (k + 1) % self.eval_every:
                 continue
             loss = problem.global_loss(w)
@@ -205,9 +240,32 @@ class _Grid:
             self.bit_series.append(bits)
             diff = w - self.w_star
             self.dists.append(torch.sqrt((diff * diff).sum(-1)))
+            if self.tel is not None:
+                self._emit(st)
         c.update(w=w, h=st.h, hbar=st.hbar, e=st.e, step=st.step, wsum=wsum,
                  wtail=wtail, last_part=last_part, bits=bits,
                  prev_act=prev_act)
+
+    def _emit(self, st: art.ArtemisState) -> None:
+        """The telemetry reading of an eval point (after the sentinel's
+        choice), then a fresh stride."""
+        n = self.problem.n_workers
+        inv = float(np.float32(1.0 / n))
+
+        def mean_norm(x):
+            return wire.l2_norm(x).sum(-1) * inv
+
+        rb = self.carry.get("rb")
+        self.tel_series.append(obs_tel.sweep_emit(
+            self.tel, self.eval_every,
+            mem_drift=mean_norm(st.h - self.g_star), e_norm=mean_norm(st.e),
+            rollbacks=None if rb is None else rb.to(torch.float32)))
+        self.tel = obs_tel.sweep_reset_stride(self.tel)
+
+    def telemetry(self):
+        """{metric: [cells, E(, B)]} of the readings so far."""
+        return {k: torch.stack([r[k] for r in self.tel_series], 1)
+                for k in self.tel_series[0]}
 
     def _sentinel(self, cur: dict) -> dict:
         """Roll every bad cell back to its good snapshot (NaN compares
@@ -301,9 +359,6 @@ def run_sweep(problem: Problem, cfgs: Sequence[art.ArtemisConfig],
         raise ValueError("telemetry=True is not supported with "
                          "checkpoint_dir (the checkpoint carry holds no "
                          "metrics); run the instrumented sweep unsegmented")
-    if telemetry:
-        raise NotImplementedError("sweep telemetry is not ported yet; see "
-                                  "ROADMAP.md A11")
     if checkpoint_dir is not None and group_by_variant:
         raise ValueError("checkpointing is not supported with "
                          "group_by_variant=True (independent sub-sweeps "
@@ -342,7 +397,8 @@ def run_sweep(problem: Problem, cfgs: Sequence[art.ArtemisConfig],
     ws = (torch.zeros(d, device=dev) if w_star is None
           else torch.as_tensor(w_star, dtype=torch.float32, device=dev))
     grids = [_Grid(problem, cfg, gms.repeat_interleave(S), G, iters,
-                   eval_every, full_batch, w0, ws, gamma_decay, backend)
+                   eval_every, full_batch, w0, ws, gamma_decay, backend,
+                   telemetry)
              for cfg in cfgs]
     k0 = 0
     if checkpoint_dir is not None:
@@ -351,12 +407,13 @@ def run_sweep(problem: Problem, cfgs: Sequence[art.ArtemisConfig],
                           ws)
         if resume and checkpointer.latest_step(checkpoint_dir) is not None:
             k0 = _restore(checkpoint_dir, grids, fp, iters // eval_every)
-    for start in range(k0, iters, segment):
-        for grid in grids:            # every variant through the segment
-            grid.rounds(noise, start, start + segment)
-        if checkpoint_dir is not None:
-            _save(checkpoint_dir, grids, fp, iters // eval_every,
-                  (start + segment) // eval_every)
+    with spans.span("sweep/execute", cells=V * G * S):
+        for start in range(k0, iters, segment):
+            for grid in grids:        # every variant through the segment
+                grid.rounds(noise, start, start + segment)
+            if checkpoint_dir is not None:
+                _save(checkpoint_dir, grids, fp, iters // eval_every,
+                      (start + segment) // eval_every)
 
     def stack(parts):
         x = torch.stack(parts).cpu().numpy()
@@ -367,10 +424,15 @@ def run_sweep(problem: Problem, cfgs: Sequence[art.ArtemisConfig],
     losses, bits, dists = (stack([s[i] for s in series]) for i in range(3))
     w_fin, w_avg, w_tail, rb, gscale = (stack([f[i].to(dev) for f in finals])
                                         for i in range(5))
+    tel = None
+    if telemetry:
+        per = [g.telemetry() for g in grids]
+        tel = {k: stack([p[k] for p in per]) for k in per[0]}
     return SweepResult(
         losses=losses, bits=bits, dists=dists, w_final=w_fin, w_avg=w_avg,
         w_tail_avg=w_tail, rollbacks=rb, gamma_scale=gscale,
-        eval_iters=np.arange(1, iters // eval_every + 1) * eval_every - 1)
+        eval_iters=np.arange(1, iters // eval_every + 1) * eval_every - 1,
+        telemetry=tel)
 
 
 def _snapshot(grids, n_evals: int):

@@ -117,13 +117,16 @@ def exp4_pp(device=None) -> Dict:
 
 def fig4_bits(device=None, gamma_mults: Sequence[float] = (1.0,),
               seeds: Sequence[int] = (0,),
-              fault_config: Optional[faults.FaultConfig] = None) -> Dict:
+              fault_config: Optional[faults.FaultConfig] = None,
+              telemetry: bool = False) -> Dict:
     """Fig 4: loss against communicated bits on the clustered non-i.i.d.
     problem (N=20, n_per=300, d=40, batch 16, 600 rounds, eval every 5).
     ``gamma_mults`` scale the reference's step 0.5/L; the grid is the
-    5 variants x gammas x seeds, every variant under ``fault_config``.
-    Returns, per variant, the bits the first cell (gamma 0, seed 0) spent
-    to halve the excess loss (inf if never), and the grid's rollbacks."""
+    5 variants x gammas x seeds, every variant under ``fault_config``, with
+    the sweep's telemetry when ``telemetry``.  Returns, per variant, the
+    bits the first cell (gamma 0, seed 0) spent to halve the excess loss
+    (inf if never), the grid's rollbacks, and the ``SweepResult``
+    (``sweep``)."""
     dev = default_device(device)
     prob = fed.make_clustered_problem(5, n_workers=N, n_per=300, d=40,
                                       device=dev)
@@ -135,7 +138,8 @@ def fig4_bits(device=None, gamma_mults: Sequence[float] = (1.0,),
     cfgs = [dataclasses.replace(art.variant_config(v, 40, N),
                                 faults=fault_config) for v in variants]
     res, us = _timed_sweep(prob, cfgs, [gamma * m for m in gamma_mults],
-                           list(seeds), 600, batch=16, eval_every=5)
+                           list(seeds), 600, batch=16, eval_every=5,
+                           telemetry=telemetry)
     out = {}
     for vi, v in enumerate(variants):
         exc = res.losses[vi, 0, 0] - opt
@@ -144,7 +148,7 @@ def fig4_bits(device=None, gamma_mults: Sequence[float] = (1.0,),
     return {"bits_to_half_loss": out, "us_per_round_cell": us,
             "cells": len(cfgs) * len(gamma_mults) * len(seeds),
             "finite": bool(np.isfinite(res.losses).all()),
-            "rollbacks": int(res.rollbacks.sum())}
+            "rollbacks": int(res.rollbacks.sum()), "sweep": res}
 
 
 def exp5_faults(device=None) -> Dict:
@@ -275,18 +279,22 @@ def toy_mesh_train(variant: str = "artemis", reduce_impl: str = "pipelined",
                    n_layers: int = 12, d: int = 64, steps: int = 20,
                    device=None, *, n_workers: int = 8,
                    p_participation: float = 1.0,
-                   local_steps: int = 1) -> Dict:
+                   local_steps: int = 1, wire: str = "bucketed",
+                   faults: Optional[faults.FaultConfig] = None,
+                   telemetry: bool = False) -> Dict:
     """Train ToyMLP(n_layers, d) on W = ``n_workers`` simulated workers
-    through the bucketed mesh wire, as ``benchmarks/bucket_ring_bench.py::
-    bench_wire`` configures it (s=3, 4096-byte buckets, at most 16, rows of
-    64, sgd(0.05), 4 W rows per batch), from parameters and a batch drawn
-    with seed 0.  With ``local_steps`` k > 1, every k-th step communicates
-    and the others only accumulate.
+    through the mesh wire (``wire``: bucketed or leaf), as
+    ``benchmarks/bucket_ring_bench.py::bench_wire`` configures it (s=3,
+    4096-byte buckets, at most 16, rows of 64, sgd(0.05), 4 W rows per
+    batch), from parameters and a batch drawn with seed 0.  With
+    ``local_steps`` k > 1, every k-th step communicates and the others only
+    accumulate.  ``faults`` and ``telemetry`` go to the ``DistConfig``.
 
     Returns the loss of every step, the median µs per step (host clock
     around each step, ending in a synchronize on CUDA), the number of
     communicating steps, the launches of the mesh kernels over the run,
-    the layout and the final parameters."""
+    the layout, the final parameters, and with telemetry the obs dict of
+    every communicating step (``obs``, tensors on the device)."""
     dev = default_device(device)
     model = ToyMLP(n_layers, d).to(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -296,21 +304,24 @@ def toy_mesh_train(variant: str = "artemis", reduce_impl: str = "pipelined",
                            p_participation=p_participation,
                            local_steps=local_steps, bucket_bytes=4096,
                            max_buckets=16, bucket_row=64,
-                           reduce_impl=reduce_impl)
+                           reduce_impl=reduce_impl, wire=wire,
+                           faults=faults, telemetry=telemetry)
     init_state, step_fn = dist.make_train_step(model, sgd(0.05), dcfg,
                                                n_workers, device=dev)
     local_fn = (dist.make_local_step(model, dcfg, n_workers)
                 if local_steps > 1 else None)
     state = init_state(params)
     a0, r0 = bucket_acc.launches, bucket_ring_sum.launches
-    losses, times, comm = [], [], 0
+    losses, times, comm, obs = [], [], 0, []
     for i in range(steps):
         t0 = time.perf_counter()
         if local_fn is not None and (i + 1) % local_steps:
             state, (loss, _) = local_fn(state, batch)
         else:
-            state, (loss, _) = step_fn(state, batch)
+            state, (loss, metrics) = step_fn(state, batch)
             comm += 1
+            if telemetry:
+                obs.append(metrics["obs"])
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         times.append(time.perf_counter() - t0)
@@ -321,7 +332,7 @@ def toy_mesh_train(variant: str = "artemis", reduce_impl: str = "pipelined",
             "launches": {"bucket_acc": bucket_acc.launches - a0,
                          "bucket_ring_sum": bucket_ring_sum.launches - r0},
             "layout": dcfg.layout(list(params.values())).shape,
-            "params": state.params}
+            "params": state.params, "obs": obs}
 
 
 def compressed_sgd_step(model, params: Dict[str, torch.Tensor], batch, lr,

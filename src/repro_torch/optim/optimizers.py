@@ -4,11 +4,13 @@ They act on lists of tensors, one per parameter, in a fixed order:
 ``update(grads, state, step, params=None) -> (updates, new_state)``, and the
 caller applies ``params - updates`` (the step size is folded in already).
 Artemis composes with either, because compression acts on the gradient
-aggregate before the optimizer sees it.  ``cosine_lr`` is not ported yet.
+aggregate before the optimizer sees it.  ``cosine_lr`` is the warm-up then
+cosine step-size schedule.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, List, Optional, Tuple
 
 import torch
@@ -65,3 +67,17 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return upd, {"m": m, "v": v}
 
     return Optimizer(init, update)
+
+
+def cosine_lr(base: float, warmup: int, total: int, floor: float = 0.1):
+    """Step size at ``step``: linear warm-up over ``warmup`` steps, then a
+    cosine decay from ``base`` to ``floor * base`` at ``total``.  Takes an
+    int or an int tensor and returns a float32 tensor, in the reference's
+    float32 arithmetic."""
+    def sched(step) -> torch.Tensor:
+        s = torch.as_tensor(step).to(torch.float32)
+        warm = s / max(warmup, 1)
+        prog = torch.clamp((s - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog))
+        return base * torch.where(s < warmup, warm, cos)
+    return sched

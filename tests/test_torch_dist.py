@@ -46,6 +46,7 @@ from helpers.prop import given, settings, st
 
 from repro.core import bucketing as jb
 from repro.core import dist as jdist
+from repro.core import faults as jflt
 from repro.kernels import bucket_ring as jbk
 from repro.models.toy import ToyMLP as JToyMLP
 from repro.optim import optimizers as jopt
@@ -58,13 +59,37 @@ from repro_torch.core import noise as tnoise
 from repro_torch.kernels import bucket_ring as tbk
 from repro_torch.models.toy import ToyMLP
 from repro_torch.optim import optimizers as topt
+from test_torch_faults import leaf_draws
 
 W = 4
 WIRE = dict(s=3, bucket_bytes=4096, max_buckets=8, bucket_row=64)
 STEP_CASES = {"artemis": dict(variant="artemis"),
               "dore": dict(variant="dore"),
               "sgd": dict(variant="sgd"),
-              "artemis_p05": dict(variant="artemis", p_participation=0.5)}
+              "artemis_p05": dict(variant="artemis", p_participation=0.5),
+              "leaf_artemis": dict(variant="artemis", wire="leaf"),
+              "leaf_dore_p05": dict(variant="dore", wire="leaf",
+                                    p_participation=0.5),
+              # stragglers over a Markov chain, NaN blowups, scrubbing
+              "faulted": dict(variant="artemis", p_participation=0.5,
+                              faults=dict(straggler_rate=0.25, p_stay=0.8,
+                                          blowup_rate=0.3, scrub=True))}
+
+
+def _case_kw(case, flt):
+    """STEP_CASES[case] with its faults as ``flt.FaultConfig``."""
+    kw = dict(STEP_CASES[case])
+    if "faults" in kw:
+        kw["faults"] = flt.FaultConfig(**kw["faults"])
+    return kw
+
+
+def _state_leaves(x):
+    """The mesh state's field as a list of arrays (the leaf wire's per-leaf
+    lists or trees; the bucketed wire's one stack)."""
+    if isinstance(x, (list, tuple, dict)):
+        return [np.asarray(a) for a in jax.tree.leaves(x)]
+    return [np.asarray(x)]
 
 
 def _jax_params(n_layers=4, d=64):
@@ -77,32 +102,70 @@ def _as_numpy(tree):
 
 class JaxMeshReplay:
     """Replays the reference mesh step's draws for ``seed`` (DistConfig's):
-    the uplink and downlink uniforms of every bucket and the participation
-    uniform of every worker."""
+    the uplink and downlink uniforms of every bucket (``shape`` [B, R, C])
+    or of every parameter leaf (``shape`` a list of leaf shapes), the
+    participation uniform of every worker, and, when asked, the fault
+    draws of ``_round_keys``: the straggler and blowup uniforms and the bit
+    flips of every wire message, ``fold_in(flt_key, 3)`` for the bucket
+    stack and ``fold_in(flt_key, 10 + i)`` for leaf i."""
 
     def __init__(self, seed, n_workers, shape):
-        self.seed, self.n, (self.b, self.r, self.c) = seed, n_workers, shape
+        self.seed, self.n = seed, n_workers
+        self.bucketed = all(isinstance(d, int) for d in shape)
+        self.shapes = ([tuple(shape)] if self.bucketed
+                       else [tuple(x) for x in shape])
 
-    def _buckets(self, key):
-        return jax.vmap(lambda i: jax.random.uniform(
-            jax.random.fold_in(key, i), (self.r, self.c), jnp.float32))(
-                jnp.arange(self.b))
+    def _uniforms(self, key):
+        if self.bucketed:
+            b, r, c = self.shapes[0]
+            return [jax.vmap(lambda i: jax.random.uniform(
+                jax.random.fold_in(key, i), (r, c), jnp.float32))(
+                    jnp.arange(b))]
+        return [jax.random.uniform(jax.random.fold_in(key, i), s)
+                for i, s in enumerate(self.shapes)]
 
-    def step(self, k):
+    def step(self, k, *, faults=False, leaves=()):
         base = jax.random.fold_in(jax.random.PRNGKey(self.seed), k)
-        u_up = jnp.stack([self._buckets(jax.random.fold_in(base, w + 1))
-                          for w in range(self.n)])
-        u_act = jnp.stack([jax.random.uniform(jax.random.fold_in(
-            jax.random.fold_in(base, 999), w), ()) for w in range(self.n)])
-        u_dwn = self._buckets(jax.random.fold_in(base, 0))
-        return tnoise.MeshDraws(*(torch.from_numpy(np.asarray(x).copy())
-                                  for x in (u_up, u_act, u_dwn)))
+        ups = [self._uniforms(jax.random.fold_in(base, w + 1))
+               for w in range(self.n)]
+        u_up = [_t(jnp.stack([u[i] for u in ups]))
+                for i in range(len(self.shapes))]
+        u_act = _t(jnp.stack([jax.random.uniform(jax.random.fold_in(
+            jax.random.fold_in(base, 999), w), ()) for w in range(self.n)]))
+        u_dwn = [_t(u) for u in self._uniforms(jax.random.fold_in(base, 0))]
+        if self.bucketed:
+            u_up, u_dwn = u_up[0], u_dwn[0]
+        draws = tnoise.MeshDraws(u_up=u_up, u_act=u_act, u_dwn=u_dwn)
+        if not faults:
+            return draws
+        flt = [jax.random.fold_in(jax.random.fold_in(base, jflt.FAULT_SALT),
+                                  w) for w in range(self.n)]
+        draws.u_strag, draws.u_blow = (
+            _t(jnp.stack([jax.random.uniform(jax.random.fold_in(f, j), ())
+                          for f in flt])) for j in (1, 2))
+        if leaves:
+            salts = [3] if self.bucketed else [10 + i
+                                               for i in range(len(leaves))]
+            draws.flips = []
+            for salt, spec in zip(salts, leaves):
+                per_w = [leaf_draws(jax.random.fold_in(f, salt), spec)
+                         for f in flt]
+                draws.flips.append([
+                    (_t(jnp.stack([d[j][0] for d in per_w])),
+                     _t(jnp.stack([d[j][1] for d in per_w])))
+                    for j in range(len(spec))])
+        return draws
 
 
-def assert_mostly_close(out, ref, rtol=1e-5, atol=1e-6, frac=1e-4):
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def assert_mostly_close(out, ref, rtol=1e-5, atol=1e-6, frac=1e-4,
+                        equal_nan=False):
     out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
     assert out.shape == ref.shape
-    bad = ~np.isclose(out, ref, rtol=rtol, atol=atol)
+    bad = ~np.isclose(out, ref, rtol=rtol, atol=atol, equal_nan=equal_nan)
     assert bad.mean() <= frac, (bad.sum(), bad.size,
                                 np.abs(out - ref).max())
 
@@ -464,8 +527,9 @@ def _reference_steps(out_path):
     params = _jax_params()
     batch = model.batch(jax.random.PRNGKey(1), n=4 * W)
     out = {}
-    for case, kw in STEP_CASES.items():
-        dcfg = jdist.DistConfig(worker_axes=("pod",), **WIRE, **kw)
+    for case in STEP_CASES:
+        dcfg = jdist.DistConfig(worker_axes=("pod",), **WIRE,
+                                **_case_kw(case, jflt))
         init_state, step_fn = jdist.make_train_step(model, jsgd(0.05), dcfg,
                                                     mesh)
         state, jstep, losses = init_state(params), jax.jit(step_fn), []
@@ -475,8 +539,11 @@ def _reference_steps(out_path):
         out[f"{case}/loss"] = np.asarray(losses)
         for i, leaf in enumerate(jax.tree.leaves(state.params)):
             out[f"{case}/param{i}"] = np.asarray(leaf)
-        out[f"{case}/h"] = np.asarray(state.artemis.h)
-        out[f"{case}/hbar"] = np.asarray(state.artemis.hbar)
+        for name in ("h", "hbar"):
+            for i, a in enumerate(_state_leaves(getattr(state.artemis,
+                                                        name))):
+                out[f"{case}/{name}{i}"] = a
+        out[f"{case}/prev_active"] = np.asarray(state.artemis.prev_active)
     np.savez(out_path, **out)
 
 
@@ -501,9 +568,10 @@ def test_three_steps_match_reference(reference_steps, case):
     jp = _jax_params()
     jbatch = JToyMLP(4, 64).batch(jax.random.PRNGKey(1), n=4 * W)
     model = ToyMLP(4, 64)
-    dcfg = tdist.DistConfig(**WIRE, **STEP_CASES[case])
+    dcfg = tdist.DistConfig(**WIRE, **_case_kw(case, tfaults))
     params = convert.toy_params(_as_numpy(jp), device="cpu")
-    shape = dcfg.layout(list(params.values())).shape
+    shape = (dcfg.layout(list(params.values())).shape if dcfg.bucketed
+             else [tuple(p.shape) for p in params.values()])
     init_state, step_fn = tdist.make_train_step(
         model, topt.sgd(0.05), dcfg, W, device="cpu",
         noise=JaxMeshReplay(dcfg.seed, W, shape))
@@ -520,12 +588,19 @@ def test_three_steps_match_reference(reference_steps, case):
                                for i in range(len(state.params))])
     assert_mostly_close(flat, flat_ref, rtol=1e-4, atol=1e-6, frac=1e-3)
     np.testing.assert_allclose(flat, flat_ref, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(state.artemis.prev_active.numpy(),
+                                  ref[f"{case}/prev_active"])
     if dcfg.memory:
-        assert_mostly_close(state.artemis.h.numpy(), ref[f"{case}/h"],
-                            rtol=1e-4, atol=1e-6)
+        def flat(name):
+            x = getattr(state.artemis, name)
+            x = x if isinstance(x, list) else [x]
+            return (np.concatenate([a.numpy().ravel() for a in x]),
+                    np.concatenate([ref[f"{case}/{name}{i}"].ravel()
+                                    for i in range(len(x))]))
+        assert_mostly_close(*flat("h"), rtol=1e-4, atol=1e-6)
         # an entry of hbar sums W workers' levels
-        assert_mostly_close(state.artemis.hbar.numpy(), ref[f"{case}/hbar"],
-                            rtol=1e-4, atol=1e-6, frac=W * 1e-4)
+        assert_mostly_close(*flat("hbar"), rtol=1e-4, atol=1e-6,
+                            frac=W * 1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -591,9 +666,17 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, entry):
     dict(faults=tfaults.FaultConfig(p_stay=0.9)),
     dict(faults=tfaults.FaultConfig(scrub=True))])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tdist.make_train_step(ToyMLP(1, 8), topt.sgd(0.1),
-                              tdist.DistConfig(**kw), 2, device="cpu")
+    """These options did not run before the leaf wire, the mesh faults and
+    the mesh telemetry were ported; now each trains a step, finite, and
+    nothing raises."""
+    model = ToyMLP(1, 8)
+    params = model.init(torch.Generator().manual_seed(0))
+    init_state, step_fn = tdist.make_train_step(
+        model, topt.sgd(0.1), tdist.DistConfig(**kw), 2, device="cpu")
+    state, (loss, metrics) = step_fn(init_state(params),
+                                     model.batch(torch.Generator(), n=4))
+    assert torch.isfinite(loss) and state.artemis.step == 1
+    assert ("obs" in metrics) == bool(kw.get("telemetry"))
 
 
 def test_zero_fault_config_runs_and_other_helpers_raise():
@@ -601,9 +684,8 @@ def test_zero_fault_config_runs_and_other_helpers_raise():
                           tdist.DistConfig(faults=tfaults.FaultConfig()), 2,
                           device="cpu")
     for helper in (tdist.shard_map_compat, tdist.make_worker_mesh,
-                   tdist.state_specs, tdist.state_shardings,
-                   tdist.artemis_aggregate):
-        with pytest.raises(NotImplementedError):
+                   tdist.state_specs, tdist.state_shardings):
+        with pytest.raises(NotImplementedError, match="dist_pg"):
             helper()
     # every codec of the registry is ported: the wire builds any of them
     assert tdist.DistConfig(codec="sparsify").wire_codec(64).name == \

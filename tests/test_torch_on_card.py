@@ -16,7 +16,9 @@ bucket_acc, every in-place hop of bucket_acc_hop_ and bucket_ring_sum bit
 for bit (the same multiply-then-add, in worker order), and so the pipelined
 mesh ring equals the sequential one;
 squant_decode and dequant_apply bit for bit, in f32 and in bf16 (the same
-operations, each rounded to the output type).
+operations, each rounded to the output type); bucket_acc (both entry
+points) and bucket_ring_sum bit for bit, NaN placement included, on
+corrupted mesh payloads and on the leaf wire's stacks.
 """
 import pytest
 import torch
@@ -615,3 +617,96 @@ def test_faulted_sweep_resumes_bitwise_on_card(cuda_device, tmp_path):
                         **kw)
     for f in ("losses", "bits", "w_final", "rollbacks", "gamma_scale"):
         assert np.array_equal(getattr(full, f), getattr(res, f)), f
+
+
+# ---------------------------------------------------------------------------
+# the mesh wire's second half: B3 and B4 on faulted payloads and the leaf
+# wire's stacks
+# ---------------------------------------------------------------------------
+
+def _corrupt_payload(shape, seed, dev, scrub):
+    """A [W, B, R, C] row-scale payload as the faulted wire hands it to the
+    ring: bits flipped over the levels and the scales, and scales set to
+    NaN, +-Inf, 0.0, -0.0 and -2.5; with ``scrub`` after the server's
+    checksum and scrub (finite scales, a failed bucket's zeroed)."""
+    from repro_torch.core import codec as wire
+    from repro_torch.core import dist as tdist
+    from repro_torch.core import faults as tflt
+    q, sc = _payload(shape, seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    meta = wire.PayloadMeta("row_squant", tuple(shape), "torch.float32",
+                            (("s", 3),))
+    p = wire.WirePayload({"levels": q, "scales": sc}, meta)
+    draws = [(torch.randint(0, bits, t.shape, generator=gen, device=dev,
+                            dtype=torch.int32),
+              torch.rand(t.shape, generator=gen, device=dev))
+             for t, bits in ((q, 8), (sc, 32))]
+    p = tflt.corrupt_payload(draws, p, 5e-4)
+    sc = p["scales"].clone()
+    sc.view(-1)[:6] = torch.tensor([float("nan"), float("inf"),
+                                    -float("inf"), 0.0, -0.0, -2.5])
+    p = p.replace(scales=sc)
+    if scrub:
+        codec = wire.make_codec("row_squant", shape[-1], s=3)
+        p = tflt.scrub_payload(p, tdist.message_valid(codec, p, 2))
+    return p["levels"].contiguous(), p["scales"].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scrub", [False, True])
+def test_ring_kernels_on_corrupt_payloads(cuda_device, scrub):
+    """B3 (out of place and every in-place hop) and B4 bit for bit with
+    their plain versions, NaN placement included, on corrupted payloads,
+    scrubbed and not."""
+    shape = (8, 16, 49, 64)
+    q, sc = _corrupt_payload(shape, 40 + scrub, cuda_device, scrub)
+    acc = torch.randn(shape, device=cuda_device)
+    flat = (q.flatten(0, 1), sc.flatten(0, 1), acc.flatten(0, 1))
+    _same_values(tbr.bucket_acc(flat[2], flat[0], flat[1]),
+                 tbr.bucket_acc_plain(flat[2], flat[0], flat[1]))
+    a, r = torch.full(shape, float("nan"), device=cuda_device), acc.clone()
+    for hop in range(shape[0]):
+        tbr.bucket_acc_hop_(a, q, sc, hop)
+        tbr.bucket_acc_hop_plain_(r, q, sc, hop)
+        _same_values(a, r)
+    out = tbr.bucket_ring_sum(q, sc)
+    _same_values(out, tbr.bucket_ring_sum_plain(q, sc))
+    if scrub:
+        assert bool(torch.isfinite(sc).all())
+    else:
+        assert bool(torch.isnan(out).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1024, 1024), (8, 1, 1024),
+                                   (8, 1024, 1)])
+def test_bucket_acc_hop_on_leaf_stacks(cuda_device, shape):
+    """The leaf wire's stacks of ToyMLP(12, 1024) at W = 8 (a weight, a
+    bias as one row, the head's rows of one): every hop bit for bit."""
+    q, sc = _payload(shape, sum(shape), cuda_device)
+    a = torch.full(shape, float("nan"), device=cuda_device)
+    r = a.clone()
+    for hop in range(shape[0]):
+        tbr.bucket_acc_hop_(a, q, sc, hop)
+        tbr.bucket_acc_hop_plain_(r, q, sc, hop)
+        torch.cuda.synchronize()
+        assert torch.equal(a, r), hop
+
+
+@pytest.mark.cuda
+def test_leaf_and_faulted_mesh_on_card(cuda_device):
+    """The leaf wire and a faulted bucketed wire train finite on the card,
+    the leaf ring launching W bucket_acc hops a leaf a step."""
+    from repro_torch.core import faults as tflt
+    leaf = experiments.toy_mesh_train("artemis", n_layers=2, d=32, steps=3,
+                                      n_workers=4, wire="leaf",
+                                      device=cuda_device)
+    assert leaf["launches"]["bucket_acc"] == 3 * 4 * 5
+    flt = experiments.toy_mesh_train(
+        "artemis", n_layers=2, d=32, steps=3, n_workers=4,
+        p_participation=0.5, telemetry=True, device=cuda_device,
+        faults=tflt.FaultConfig(bitflip_rate=0.02, blowup_rate=0.3,
+                                scrub=True))
+    for res in (leaf, flt):
+        assert all(torch.isfinite(p).all() for p in res["params"].values())
+    assert len(flt["obs"]) == 3
