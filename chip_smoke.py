@@ -17,7 +17,10 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
    sweep's [M, N, 1] bit meter, bit for bit; every fused_memory_update,
    ring_sum, worker_sum and bucket_ring_sum case launched twice for the
    same bits); the ring's in-place hop (``bucket_acc_hop_``) at the mesh
-   and wide stacks, hops 0 and 1;
+   and wide stacks and at the LM paths' own (lm-100m's [8, 16, 28421,
+   256], timed; each reduced arch's W = 2 stack the train CLI builds),
+   hops 0 and 1, and bucket_ring_sum at reduced starcoder2's W = 2 stack,
+   all bit for bit;
 4. slice: the paper's experiments exp1 to exp4 through ``run_sweep`` with
    ``backend="cuda"``; the four claims must hold and every squant-uplink
    variant must have launched both kernels once per round (and the worker
@@ -83,7 +86,7 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
 14. figures: ``table3_gamma_max`` (the theory's gamma_max converges for
    sgd, qsgd and artemis) and ``thm3_variance_lower_bound`` (q = 0.25
    saturates above q = 1);
-15. resume: the faulted grid at 8 seeds (320 cells, 100 rounds)
+15. resume: the faulted grid at 4 seeds (160 cells, 100 rounds)
    checkpointed every 50 rounds, rewound to its first snapshot and resumed, bit for bit with
    the uninterrupted run; the time of one save of its snapshot; then the
    profile of phase 6 again under ``GRID_FAULTS``.
@@ -115,22 +118,51 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
    beside phase 8's clean step;
 22. pg ring: whether gloo's send and receive move a CUDA tensor (two
    ranks), then W = 4 ranks of ``core/dist_pg.py`` on the card (gloo,
-   payloads staged through pinned host memory), ToyMLP(12, 1024), 5
+   payloads staged through pinned host memory), ToyMLP(12, 1024), 3
    steps of each reduce_impl: rank 0 against the simulated axis over the
    same draws and the ranks' own gradients (pipelined and sequential bit
    for bit, psum to 1e-5), the bytes a rank sends against (W - 1) times
    the codec's wire bytes, µs per step;
-23. obs smoke (last): ``python -m repro_torch.obs smoke`` on the card into
+23. obs smoke: ``python -m repro_torch.obs smoke`` on the card into
    ``build/chip_smoke_obs``, ``validate`` on its events, the directory
-   removed.
+   removed;
+24. lm reduced: every architecture's REDUCED config (all ten) on the card
+   against the same model on the CPU (same parameters and tokens): the
+   loss within 2e-3 and 8 decode steps' logits within 0.06; then 3 steps of ``launch.train.main``
+   (artemis, W = 2) for each arch of the families the train CLI can
+   train (dense, moe, ssm, hybrid), losses finite, and 3 steps of reduced
+   starcoder2 through ``make_train_step`` with ``reduce_impl="psum"``;
+   bucket_acc must launch W times a communicating step of the CLI's runs,
+   bucket_ring_sum once a psum step;
+25. lm serve: starcoder2-7b and olmoe-1b-7b at their published configs
+   (random weights from a seed, f32 parameters, bf16 compute), one after
+   the other, through ``launch.serve.generate`` at the CLI's defaults
+   (batch 4, prompt 32, 32 new tokens): tok/s, ms per decode step, peak
+   device memory, a profiled window of 4 decode steps, every token in the
+   vocabulary, and the decode chain's last logits against
+   ``prefill_logits`` over the same 64 tokens (the MoE at a dropless
+   capacity, as the reference's ``test_decode_matches_prefill`` takes it)
+   in bf16; for olmoe, whose bf16 routing flips, at f32 compute, and in
+   bf16 with the decode's experts pinned to prefill's
+   (``_moe_decode_checks``);
+26. lm train: ``lm-100m`` (examples/train_lm.py --full-100m, 116.4 M
+   parameters) over the default bucketed ``DistConfig``, artemis, s = 1,
+   adam(3e-3), W = 8, batch 16, seq 256: 2 warm-up steps, then
+   ``LM_TRAIN_STEPS`` under ``torch.profiler``: µs per step, the
+   device-busy share, device ops per step, peak memory, the wire bytes a
+   worker a step (``launch/roofline.py::bucketed_wire_model``), exactly W
+   bucket_acc launches a step, its stack the one phase 3 held to the
+   plain hop; the loss must fall, by more than 0.5 nats (the example's
+   check).
 
 The simulator's path (phases 4 and 5), the fault path (phases 13 to 15),
 the telemetry grid (17), the mesh's (phases 7 and 8), the leaf wire's
 (18, 19), the mesh's fault path (20, 21) and the compression API's (phase
-10) are each driven with every launch count set to 0 just before and read
-just after; the pg ring's ranks count their own.  The kernels line adds
-the simulator's, the fault path's and the telemetry grid's launches of B1,
-B2 and the worker sum, and every mesh path's of B3 and B4.
+10) and the LM paths (24 to 26) are each driven with every launch count
+set to 0 just before and read just after; the pg ring's ranks count their
+own.  The kernels line adds the simulator's, the fault path's and the
+telemetry grid's launches of B1, B2 and the worker sum, and every mesh
+and LM path's of B3 and B4.
 
 It prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -205,9 +237,9 @@ OPS_STEPS, OPS_S, OPS_LR, OPS_ALPHA = 10, 1, 0.01, 0.5
 # (100 rounds, a snapshot every 50)
 GRID_FAULTS = dict(bitflip_rate=0.01, scrub=True, sentinel=1e6)
 RESUME_ITERS, RESUME_EVERY = 100, 50
-# the resume phase's grid at 8 of the 16 seeds (320 cells), so that the
-# whole script stays under 300 s
-RESUME_SEEDS = GRID_SEEDS[:8]
+# the resume phase's grid at 4 of the 16 seeds (160 cells; 8 in PR 18),
+# to make room for the LM phases
+RESUME_SEEDS = GRID_SEEDS[:4]
 # the codecs phase: (codec, kwargs, shape) on the card against the CPU;
 # [128, 20, 40] is a grid variant's uplink, [20, 5000] a longer message
 CODEC_CASES = [("tile_squant", {"s": 1, "tile": 1024}, (20, 5000)),
@@ -217,6 +249,20 @@ CODEC_CASES = [("tile_squant", {"s": 1, "tile": 1024}, (20, 5000)),
                ("sparsify", {"q": 0.5}, (20, 5000)),
                ("topk", {"frac": 0.1}, (B, N, 40)),
                ("topk", {"frac": 0.1}, (20, 5000))]
+
+
+# the LM stack: every arch's REDUCED config on the card against the CPU
+# (batch 2, 64 tokens, 8 decode steps), the train CLI (the families whose
+# batches carry tokens only) at W = 2, 3 steps of batch 4, seq 64
+LM_B, LM_S, LM_T = 2, 64, 8
+LM_CLI_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+LM_CLI_W, LM_CLI_STEPS = 2, 3
+# full width: served at the serve CLI's defaults; lm-100m trained at
+# examples/train_lm.py's settings
+LM_SERVE_ARCHS = ("starcoder2-7b", "olmoe-1b-7b")
+LM_SERVE_B, LM_SERVE_PROMPT, LM_SERVE_GEN = 4, 32, 32
+LM_TRAIN_W, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 16, 256
+LM_TRAIN_STEPS = 10
 
 
 class SmokeFailure(Exception):
@@ -518,9 +564,10 @@ def acc_case(dev, shape, seed):
                 library_kernels=lib_kernels, **times)
 
 
-def hop_case(dev, shape, hop, seed):
+def hop_case(dev, shape, hop, seed, timed=True):
     """One hop of the simulated ring, in place over the [W, B, R, C] stack.
-    The accumulator starts as NaN, which hop 0 must not read."""
+    The accumulator starts as NaN, which hop 0 must not read.  Untimed, it
+    only holds the kernel to its plain version."""
     import torch
     from repro_torch.kernels.bucket_ring import (
         bucket_acc, bucket_acc_hop_, bucket_acc_hop_plain_)
@@ -540,6 +587,8 @@ def hop_case(dev, shape, hop, seed):
     name = f"bucket_acc_hop_ {list(shape)} hop {hop}"
     check(torch.equal(acc, ref), f"{name}: differs from its plain version "
                                  f"by {err}")
+    if not timed:
+        return dict(shape=list(shape), hop=hop, max_abs_err=err)
     n_el, rows = q.numel(), q.numel() // shape[-1]
     # reads q (1 B) and, after hop 0, acc (4 B), writes acc (4 B) per
     # element, reads one 4 B scale per row; a multiply and an add per element
@@ -555,7 +604,7 @@ def hop_case(dev, shape, hop, seed):
                     lambda: bucket_acc_hop_plain_(ref, q, scales, hop)))
 
 
-def bsum_case(dev, shape, seed):
+def bsum_case(dev, shape, seed, timed=True):
     import torch
     from repro_torch.kernels.bucket_ring import (
         bucket_acc, bucket_ring_sum, bucket_ring_sum_plain)
@@ -576,6 +625,8 @@ def bsum_case(dev, shape, seed):
         chain = bucket_acc(chain, q[i], scales[i])
     check(torch.equal(out, chain), f"bucket_ring_sum {list(shape)}: differs "
                                    f"from the bucket_acc hop chain")
+    if not timed:
+        return dict(shape=list(shape), max_abs_err=err)
     times = timings(lambda: bucket_ring_sum(q, scales),
                     lambda: bucket_ring_sum_plain(q, scales))
     n, n_el = shape[0], q.numel()
@@ -588,14 +639,25 @@ def bsum_case(dev, shape, seed):
                 bound_by=b_by, library_ms=None, **times)
 
 
-def mesh_kernel_phase(dev):
+def mesh_kernel_phase(dev, lm_stacks):
+    """B3 and B4 on the mesh's shapes and on the LM paths' stacks
+    (``lm_ring_stacks``): lm-100m's timed, the reduced archs' checked."""
     acc = [acc_case(dev, sh, 20 + i) for i, sh in enumerate(ACC_CASES)]
     acc += [hop_case(dev, sh, hop, 25 + i) for i, sh in enumerate(HOP_CASES)
             for hop in (0, 1)]
+    acc += [hop_case(dev, lm_stacks["train"], hop, 28) for hop in (0, 1)]
+    acc += [hop_case(dev, sh, hop, 40 + i, timed=False)
+            for i, sh in enumerate(sorted(set(lm_stacks["cli"].values())))
+            for hop in (0, 1)]
     bsum = [bsum_case(dev, sh, 30 + i) for i, sh in enumerate(BSUM_CASES)]
+    bsum.append(bsum_case(dev, lm_stacks["psum"], 32, timed=False))
     for name, cases in (("bucket_acc", acc), ("bucket_ring_sum", bsum)):
         for cs in cases:
             hop = f" hop {cs['hop']}" if "hop" in cs else ""
+            if "ms" not in cs:
+                log(f"kernel {name} {cs['shape']}{hop}: equal to its plain "
+                    f"version (an LM path's stack, not timed)")
+                continue
             log(f"kernel {name} {cs['shape']}{hop}: device {_us(cs['ms'])} "
                 f"(plain {_us(cs['plain_ms'])}, library "
                 f"{_us(cs['library_ms'])}), per call {_us(cs['call_ms'])} "
@@ -1790,7 +1852,7 @@ def wide_faulted_phase(dev, clean):
     return out
 
 
-PG_WORLD, PG_STEPS = 4, 5
+PG_WORLD, PG_STEPS = 4, 3        # 5 steps in PR 18
 PG_CASES = ("pipelined", "sequential", "psum")
 
 
@@ -2019,6 +2081,469 @@ def obs_smoke_phase():
     return {"seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# the LM stack: every family reduced, two 7B models served, lm-100m trained
+# ---------------------------------------------------------------------------
+
+def _lm_batch(cfg, b, s, seed):
+    """Tokens (and the vlm's patch embeddings, the encdec's frames) drawn
+    from ``seed`` with numpy, on the CPU."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    text = s - cfg.n_patches if cfg.family == "vlm" else s
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, text)).astype(np.int32))}
+    if cfg.family == "vlm":
+        batch["embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_frames, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def _lm_eval(model, params, batch, enc_out, steps):
+    """The loss and ``steps`` decode steps' logits [steps, B, V]."""
+    import torch
+    dev = params["embed"].device
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    with torch.inference_mode():
+        loss, _ = model.loss(params, batch)
+        cache = model.init_cache(batch["tokens"].shape[0], steps, device=dev)
+        logits = []
+        for i in range(steps):
+            lg, cache = model.decode_step(
+                params, cache, batch["tokens"][:, i], i,
+                enc_out=None if enc_out is None else enc_out.to(dev))
+            logits.append(lg)
+    return float(loss), torch.stack(logits).cpu()
+
+
+def lm_logits_agree(out, ref):
+    """Every logit within 0.06 (the bf16 bar of tests/test_torch_models.py;
+    the card and the CPU run the same port, so the MoE archs take it too).
+    Returns (ok, max |diff|, tokens beyond 0.06)."""
+    err = (out - ref).abs()
+    mx = float(err.max())
+    return mx <= 6e-2, mx, int((err > 6e-2).any(-1).sum())
+
+
+def _quiet(fn, *args, **kw):
+    """Run ``fn`` with its stdout (an echoing event log) kept off ours."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args, **kw)
+
+
+def _lm_cli_archs():
+    """The archs whose reduced config the train CLI can train: their
+    TokenStream batches carry tokens only."""
+    from repro_torch import configs
+    return [a for a in sorted(configs.ARCHS)
+            if configs.get_config(a, reduced=True).family in LM_CLI_FAMILIES]
+
+
+def lm_ring_stacks(dev):
+    """The [W, B, R, C] stacks that the LM paths hand B3's hops and B4,
+    under the default bucketed ``DistConfig`` (the one the train CLI
+    builds): each reduced arch the CLI trains at W = 2 (``"cli"``),
+    reduced starcoder2 on psum at W = 2 (``"psum"``) and lm-100m at W = 8
+    (``"train"``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch import experiments as ex
+    from repro_torch.core import dist
+    from repro_torch.models.model import build_model
+
+    def stack(cfg, w):
+        params = build_model(cfg).init(
+            torch.Generator(device=dev).manual_seed(0))
+        return (w,) + tuple(dist.DistConfig().layout(
+            list(params.values())).shape)
+
+    cli = {a: stack(configs.get_config(a, reduced=True), LM_CLI_W)
+           for a in _lm_cli_archs()}
+    return {"cli": cli, "psum": cli["starcoder2-7b"],
+            "train": stack(ex.lm_config(full_100m=True), LM_TRAIN_W)}
+
+
+def lm_reduced_phase(dev):
+    """Every arch's REDUCED config on the card against the CPU; the train
+    CLI for each arch it can train; reduced starcoder2 on psum."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import dist
+    from repro_torch.data.synthetic import TokenStream, TokenStreamConfig
+    from repro_torch.kernels.bucket_ring import bucket_acc, bucket_ring_sum
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adam
+    out = {"archs": {}}
+    t0 = time.perf_counter()
+    for i, arch in enumerate(sorted(configs.ARCHS)):
+        cfg = configs.get_config(arch, reduced=True)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(i))
+        batch = _lm_batch(cfg, LM_B, LM_S, 100 + i)
+        enc = (None if cfg.family != "encdec" else torch.randn(
+            LM_B, cfg.n_frames, cfg.d_model,
+            generator=torch.Generator().manual_seed(200 + i)).to(cfg.cdtype))
+        loss_c, logits_c = _lm_eval(model, params, batch, enc, LM_T)
+        loss_d, logits_d = _lm_eval(
+            model, {k: v.to(dev) for k, v in params.items()}, batch, enc,
+            LM_T)
+        check(math.isfinite(loss_d) and bool(torch.isfinite(logits_d).all()),
+              f"lm reduced {arch}: non-finite loss or logits on the card")
+        rel = abs(loss_d - loss_c) / abs(loss_c)
+        ok, mx, rows = lm_logits_agree(logits_d, logits_c)
+        check(rel <= 2e-3 and ok,
+              f"lm reduced {arch}: card against CPU loss rel {rel:.3g} "
+              f"(bar 2e-3), decode logits max |diff| {mx:.4g}, {rows} of "
+              f"{LM_T * LM_B} tokens beyond 0.06")
+        out["archs"][arch] = {"loss_card": loss_d, "loss_cpu": loss_c,
+                              "loss_rel": rel, "logits_max_abs": mx,
+                              "tokens_beyond": rows}
+        log(f"lm reduced {arch} ({cfg.family}): loss card {loss_d:.6f} cpu "
+            f"{loss_c:.6f} (rel {rel:.3g}); {LM_T} decode steps max |diff| "
+            f"{mx:.4g}, {rows} of {LM_T * LM_B} tokens beyond 0.06")
+    a0 = bucket_acc.launches
+    cli = _lm_cli_archs()
+    for arch in cli:
+        logs = _quiet(train.main, [
+            "--arch", arch, "--reduced", "--steps", str(LM_CLI_STEPS),
+            "--batch", "4", "--seq", "64", "--dist", "artemis",
+            "--workers", str(LM_CLI_W), "--log-every", "1",
+            "--device", str(dev)])
+        losses = [r["loss"] for r in logs]
+        check(len(logs) == LM_CLI_STEPS and all(map(math.isfinite, losses)),
+              f"lm train cli {arch}: losses {losses}")
+        out["archs"][arch]["cli_losses"] = losses
+        log(f"lm train cli {arch}: artemis W = {LM_CLI_W}, losses {losses}")
+    want = LM_CLI_W * LM_CLI_STEPS * len(cli)
+    got = bucket_acc.launches - a0
+    check(got == want, f"lm train cli: bucket_acc launched {got}, expected "
+                       f"{want} (W a step)")
+    # B4: reduced starcoder2 on the bucketed psum
+    cfg = configs.get_config("starcoder2-7b", reduced=True)
+    model = build_model(cfg)
+    dcfg = dist.DistConfig(variant="artemis", reduce_impl="psum")
+    init_state, step_fn = dist.make_train_step(model, adam(3e-3), dcfg,
+                                               LM_CLI_W, device=dev)
+    state = init_state(model.init(torch.Generator(device=dev).manual_seed(0)))
+    stream = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=64,
+                                           batch=4), device=dev)
+    r0, a1 = bucket_ring_sum.launches, bucket_acc.launches
+    losses = []
+    for i in range(LM_CLI_STEPS):
+        state, (loss, _) = step_fn(state, stream.batch_at(i))
+        losses.append(float(loss))
+    check(all(map(math.isfinite, losses)), f"lm psum: losses {losses}")
+    got = (bucket_ring_sum.launches - r0, bucket_acc.launches - a1)
+    check(got == (LM_CLI_STEPS, 0), f"lm psum: bucket_ring_sum and "
+                                    f"bucket_acc launched {got}, expected "
+                                    f"({LM_CLI_STEPS}, 0)")
+    log(f"lm psum starcoder2-reduced: losses {losses}, bucket_ring_sum "
+        f"launches {got[0]}")
+    out["psum_losses"] = losses
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def lm_serve_case(dev, arch):
+    """One arch at its published config through ``generate``."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    cfg = configs.get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.values())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (LM_SERVE_B, LM_SERVE_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    generate(model, params, prompt[:, :2], 4, 2)         # warm-up
+    torch.cuda.synchronize(dev)
+    total = LM_SERVE_PROMPT + LM_SERVE_GEN
+    decoded = _Routing(cfg)             # records a MoE's experts, if any
+    t0 = time.perf_counter()
+    with decoded:
+        toks, logits = generate(model, params, prompt, total, LM_SERVE_GEN,
+                                return_logits=True)
+    host = toks.cpu()                                   # waits for the card
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(tuple(host.shape) == (LM_SERVE_B, total)
+          and bool(((host >= 0) & (host < cfg.vocab)).all())
+          and bool(torch.isfinite(logits).all()),
+          f"lm serve {arch}: tokens out of range or non-finite logits")
+    # the decode chain's last logits against the teacher-forced forward
+    # over the same tokens (the MoE at a dropless capacity: decode's groups
+    # of B tokens never drop at this width)
+    pcfg = (dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                / cfg.top_k)
+            if cfg.family == "moe" else cfg)
+    prefilled = _Routing(cfg)
+    with prefilled, torch.inference_mode():
+        pre = build_model(pcfg).prefill_logits(params, {"tokens": toks})
+    chk = _decode_against_prefill(logits, pre)
+    if cfg.family == "moe":
+        chk = _moe_decode_checks(cfg, pcfg, model, params, toks,
+                                 (logits, decoded.calls),
+                                 (pre, prefilled.calls))
+    bf16 = (f"; bf16: {chk['flips']} of {chk['choices']} expert choices "
+            f"of the decode chain differ from prefill's (f32: "
+            f"{chk['flips_f32']}), in rows {chk['flipped_rows']}; unpinned "
+            f"max |diff| {chk['free_max_abs']:.4g} (argmax agree "
+            f"{chk['free_argmax_agree']:.3f}), rows without a flip "
+            f"{chk['unflipped_max_abs']} (bf16 bar, ok "
+            f"{chk['unflipped_ok']}); experts pinned to prefill's, max "
+            f"|diff| {chk['pinned_max_abs']:.4g} (argmax agree "
+            f"{chk['pinned_argmax_agree']:.3f}) against the bar "
+            f"{chk['prefill_bf16_err']:.4g}, the bf16 prefill's max |diff| "
+            f"from f32 compute with its experts" if "flips" in chk else "")
+    check(chk["ok"], f"lm serve {arch}: decode against prefill max |diff| "
+                     f"{chk['max_abs']:.4g} beyond the bar ({chk['bar']})"
+                     f"{bf16}")
+    # where a decode step's time goes: 4 steps under the profiler
+    wall_us, dev_us, busy, n_ops, top = profiled(
+        lambda: generate(model, params, prompt[:, :2], 4, 2))
+    res = {"params": n_params, "init_s": init_s, "wall_s": wall,
+           "tok_per_s": LM_SERVE_B * total / wall,
+           "ms_per_decode_step": wall / total * 1e3, "peak_bytes": peak,
+           "decode_vs_prefill": chk, "profile_us_per_step": wall_us / 4,
+           "profile_device_us_per_step": dev_us / 4, "busy_share": busy,
+           "device_ops_per_step": n_ops / 4, "top": top}
+    log(f"lm serve {arch}: {n_params} parameters (init {init_s:.3f} s), "
+        f"batch {LM_SERVE_B}, {total} decode steps in {wall:.3f} s: "
+        f"{res['tok_per_s']:.1f} tok/s, {res['ms_per_decode_step']:.3f} ms "
+        f"per decode step, peak memory {peak} bytes; decode against "
+        f"prefill ({chk['bar']}) max |diff| {chk['max_abs']:.4g}, logits "
+        f"rms {chk['rms']:.4g}, argmax agree {chk['argmax_agree']:.3f}"
+        f"{bf16}; profiled: {wall_us / 4:.1f} us per step, device "
+        f"{dev_us / 4:.1f} us, share {_fmt_share(busy)}, "
+        f"{n_ops / 4:.1f} device ops per step")
+    log_top(top)
+    del params, toks, logits, pre
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _decode_against_prefill(logits, pre, f32=False):
+    """The last decode step's logits against ``prefill_logits`` over the
+    same tokens: in bf16 within 0.15 x the logits' rms + 0.05 x |logit|
+    (the reference's rtol 5e-2 and atol 5e-2, the atol scaled by the rms
+    over the reduced width's 0.32); at f32 compute within 0.01 x rms +
+    1e-3 x |logit|."""
+    err = (logits - pre).abs()
+    rms = float(pre.pow(2).mean().sqrt())
+    a, r = (0.01, 1e-3) if f32 else (0.15, 0.05)
+    return {"ok": bool((err <= a * rms + r * pre.abs()).all()),
+            "max_abs": float(err.max()), "rms": rms,
+            "bar": f"{a} rms + {r} |ref|, {'f32' if f32 else 'bf16'}",
+            "argmax_agree": float((logits.argmax(-1) == pre.argmax(-1))
+                                  .float().mean())}
+
+
+class _Routing:
+    """Stands in for ``torch.topk`` while entered.  The MoE router's top-k
+    (a call over ``n_experts`` with k = ``top_k``, one a layer) is recorded
+    in ``calls``.  Given ``pinned``, a forward's record over [B, S] tokens,
+    each call takes the recorded experts instead of its own: a forward over
+    the same tokens takes layer c's at its call c, a decode chain takes at
+    its call c (step c // L, layer c % L) the record's for that step.  Any
+    other top-k passes through."""
+
+    def __init__(self, cfg, pinned=None):
+        self.e, self.k, self.pinned, self.calls = (
+            cfg.n_experts, cfg.top_k, pinned, [])
+
+    def __enter__(self):
+        import torch
+        self._topk, torch.topk = torch.topk, self._route
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.topk = self._topk
+
+    def _route(self, x, k, dim=-1, **kw):
+        if x.shape[-1] != self.e or k != self.k:
+            return self._topk(x, k, dim, **kw)
+        if self.pinned is None:
+            gate, idx = self._topk(x, k, dim, **kw)
+        else:
+            step, layer = divmod(len(self.calls), len(self.pinned))
+            idx = self.pinned[layer]
+            if idx.shape[:-1] != x.shape[:-1]:
+                idx = idx.reshape(x.shape[-2], -1, k)[:, step][None]
+            gate = x.gather(-1, idx)
+        self.calls.append(idx)
+        return gate, idx
+
+
+def _decode_chain(model, params, toks, routing):
+    """The last logits of decode steps over ``toks`` (teacher-forced)."""
+    import torch
+    b, total = toks.shape
+    with routing, torch.inference_mode():
+        cache = model.init_cache(b, total, device=toks.device)
+        for i in range(total):
+            logits, cache = model.decode_step(params, cache, toks[:, i], i)
+    return logits
+
+
+def _flips(cfg, decode_calls, prefill_calls, b):
+    """(expert choices of a decode chain that differ from the forward's
+    over the same tokens, of how many; the rows that hold one)."""
+    import torch
+    n_layers = len(prefill_calls)
+    rows = torch.zeros(b, dtype=torch.bool, device=decode_calls[0].device)
+    flips = 0
+    for c, idx in enumerate(decode_calls):
+        step, layer = divmod(c, n_layers)
+        ref = prefill_calls[layer].reshape(b, -1, cfg.top_k)[:, step]
+        diff = (idx[0].sort(-1).values != ref.sort(-1).values).any(-1)
+        rows |= diff
+        flips += int(diff.sum())
+    return flips, len(decode_calls) * b, rows
+
+
+def _moe_decode_checks(cfg, pcfg, model, params, toks, decoded, prefilled):
+    """Decode against prefill for a MoE at its published width, from the
+    bf16 decode chain's last logits and experts (``decoded``) and the bf16
+    forward's over the same tokens (``prefilled``).  In bf16 the top-8 of
+    64 experts flips on a rounding between the 4-token decode and the
+    256-token forward, and a flipped expert moves its token's whole output;
+    a near-uniform random router flips often.  The gates: at f32 compute,
+    the decode chain within the f32 bar of the forward; in bf16, the chain
+    with every step's experts pinned to the forward's within the forward's
+    own bf16 error (its max |diff| from the same forward at f32 compute
+    with the same experts), and the unpinned rows whose experts all agree
+    with the forward's within the bf16 bar.  The flips and the unpinned
+    gap are recorded."""
+    import dataclasses
+    import torch
+    from repro_torch.models.model import build_model
+    (lg_free, dec_calls), (pre, pre_calls) = decoded, prefilled
+    b = toks.shape[0]
+    lg_pin = _decode_chain(model, params, toks, _Routing(cfg, pre_calls))
+    flips, choices, flipped = _flips(cfg, dec_calls, pre_calls, b)
+    m32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    f32_pre = build_model(dataclasses.replace(pcfg, compute_dtype="float32"))
+    with _Routing(cfg, pre_calls), torch.inference_mode():
+        pre32_pin = f32_pre.prefill_logits(params, {"tokens": toks})
+    rounding = float((pre - pre32_pin).abs().max())
+    free32, pre32 = _Routing(cfg), _Routing(cfg)
+    lg32 = _decode_chain(m32, params, toks, free32)
+    with pre32, torch.inference_mode():
+        lg_pre32 = f32_pre.prefill_logits(params, {"tokens": toks})
+    flips32 = _flips(cfg, free32.calls, pre32.calls, b)[0]
+    chk = _decode_against_prefill(lg32, lg_pre32, f32=True)
+    pin_err = float((lg_pin - pre).abs().max())
+    whole = _decode_against_prefill(lg_free, pre)
+    keep = ~flipped
+    rows = (_decode_against_prefill(lg_free[keep], pre[keep])
+            if bool(keep.any()) else None)
+    chk.update(
+        ok=chk["ok"] and pin_err <= rounding
+        and (rows is None or rows["ok"]),
+        flips=flips, flips_f32=flips32, choices=choices,
+        flipped_rows=flipped.nonzero().flatten().tolist(),
+        free_max_abs=whole["max_abs"],
+        free_argmax_agree=whole["argmax_agree"],
+        unflipped_max_abs=None if rows is None else rows["max_abs"],
+        unflipped_ok=None if rows is None else rows["ok"],
+        pinned_max_abs=pin_err, prefill_bf16_err=rounding,
+        pinned_argmax_agree=float((lg_pin.argmax(-1) == pre.argmax(-1))
+                                  .float().mean()))
+    return chk
+
+
+def lm_serve_phase(dev):
+    return {arch: lm_serve_case(dev, arch) for arch in LM_SERVE_ARCHS}
+
+
+def lm_train_phase(dev):
+    """lm-100m over the default bucketed wire, artemis, W = 8."""
+    import torch
+    from repro_torch import experiments as ex
+    from repro_torch.core import dist
+    from repro_torch.data.synthetic import TokenStream, TokenStreamConfig
+    from repro_torch.kernels.bucket_ring import bucket_acc
+    from repro_torch.launch import roofline
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adam
+    cfg, steps = ex.lm_config(full_100m=True), LM_TRAIN_STEPS
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in params.values())
+    dcfg = dist.DistConfig(variant="artemis")
+    layout = dcfg.layout(list(params.values()))
+    init_state, step_fn = dist.make_train_step(model, adam(3e-3), dcfg,
+                                               LM_TRAIN_W, device=dev)
+    state = init_state(params)
+    stream = TokenStream(TokenStreamConfig(
+        vocab=cfg.vocab, seq_len=LM_TRAIN_SEQ, batch=LM_TRAIN_BATCH),
+        device=dev)
+    batches = [stream.batch_at(i) for i in range(2 + steps)]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = []
+    for b in batches[:2]:                               # warm-up
+        state, (loss, _) = step_fn(state, b)
+        losses.append(loss)
+    torch.cuda.synchronize(dev)
+    a0 = bucket_acc.launches
+
+    def run():
+        nonlocal state
+        for b in batches[2:]:
+            state, (loss, _) = step_fn(state, b)
+            losses.append(loss)
+
+    wall_us, dev_us, busy, n_ops, top = profiled(run)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(x) for x in losses]
+    launched = bucket_acc.launches - a0
+    check(all(map(math.isfinite, losses)), f"lm train: losses {losses}")
+    check(launched == LM_TRAIN_W * steps,
+          f"lm train: bucket_acc launched {launched}, expected "
+          f"{LM_TRAIN_W * steps} (W a step)")
+    drop = losses[0] - losses[-1]
+    check(drop > 0.5, f"lm train: the loss fell {drop:.4f} nats over "
+                      f"{len(losses)} steps (the example asks > 0.5)")
+    wire = roofline.bucketed_wire_model(
+        n_workers=LM_TRAIN_W, n_buckets=layout.n_buckets, rows=layout.rows,
+        row=layout.row)["wire_bytes_per_step"]
+    res = {"params": n_params, "layout": list(layout.shape),
+           "us_per_step": wall_us / steps, "busy_share": busy,
+           "device_us_per_step": dev_us / steps,
+           "device_ops_per_step": n_ops / steps, "peak_bytes": peak,
+           "wire_bytes_per_worker_per_step": wire, "losses": losses,
+           "drop": drop, "launches": launched, "top": top}
+    log(f"lm train {cfg.name}: {n_params} parameters, layout "
+        f"{list(layout.shape)}, W = {LM_TRAIN_W}, batch {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ}, {steps} steps after 2: {wall_us / steps:.1f} us "
+        f"per step, device busy {dev_us / steps:.1f} us per step, share "
+        f"{_fmt_share(busy)}, {n_ops / steps:.1f} device ops per step, "
+        f"peak memory {peak} bytes, {wire:.0f} wire bytes a worker a step, "
+        f"bucket_acc launches {launched}; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (drop {drop:.4f})")
+    log_top(top)
+    return res
+
+
 def kernel_line(cases, launches):
     """``cases`` and ``launches`` map each kernel's name to its kernel-phase
     cases and to its launches on its path's run."""
@@ -2082,7 +2607,8 @@ def main():
     build_phase()
     fused, ring, wsum = kernel_phase(dev)
     fault_fused, fault_ring = fault_kernel_phase(dev)
-    acc, bsum = mesh_kernel_phase(dev)
+    lm_stacks = lm_ring_stacks(dev)
+    acc, bsum = mesh_kernel_phase(dev, lm_stacks)
     ring_faults = fault_ring_kernel_phase(dev)
     codec_phase(dev)
     reset_launches()                    # the simulator's path starts here
@@ -2203,11 +2729,43 @@ def main():
         f"{tel_res['profile']['device_ops_per_round']:.1f} against "
         f"{profile_clean['device_ops_per_round']:.1f}")
     obs_res = obs_smoke_phase()
+    lm_secs, lm_l, lm_res = {}, {}, {}
+    for name, phase in (("lm_reduced", lm_reduced_phase),
+                        ("lm_serve", lm_serve_phase),
+                        ("lm_train", lm_train_phase)):
+        reset_launches()                # each LM path on its own
+        t_lm = time.perf_counter()
+        lm_res[name] = phase(dev)
+        lm_secs[name] = time.perf_counter() - t_lm
+        lm_l[name] = mesh_counts()
+    serve_res, train_res = lm_res["lm_serve"], lm_res["lm_train"]
+    check(tuple([LM_TRAIN_W] + train_res["layout"]) == lm_stacks["train"],
+          f"lm train: its stack {train_res['layout']} at W = {LM_TRAIN_W} "
+          f"is not the one held to the plain hop, {lm_stacks['train']}")
+    check(lm_l["lm_reduced"]["bucket_acc"] > 0
+          and lm_l["lm_reduced"]["bucket_ring_sum"] > 0
+          and lm_l["lm_train"]["bucket_acc"] > 0,
+          f"an LM path launched B3 or B4 0 times: {lm_l}")
+    for k in ("bucket_acc", "bucket_ring_sum"):
+        for name in lm_l:
+            launches[k] += lm_l[name][k]
+            by_path[k][name] = lm_l[name][k]
+    log(f"lm paths launches: {json.dumps(lm_l)}")
+    for arch, res in serve_res.items():
+        log(f"tok/s, lm serve {arch}: {res['tok_per_s']:.1f} "
+            f"({res['ms_per_decode_step']:.3f} ms per decode step, peak "
+            f"{res['peak_bytes']} bytes)")
+    log(f"us per step, lm train lm-100m: {train_res['us_per_step']:.1f} "
+        f"(busy share {_fmt_share(train_res['busy_share'])}, "
+        f"{train_res['device_ops_per_step']:.1f} device ops, peak "
+        f"{train_res['peak_bytes']} bytes)")
     log(f"fault phases {fault_secs:.1f} s; telemetry grid {tel_secs:.1f} s; "
         f"mesh phases {mesh_secs:.1f} s; leaf phases {leaf_secs:.1f} s; "
         f"mesh fault phases {mflt_secs:.1f} s; pg ring {pg_secs:.1f} s; "
         f"ops phases {ops_secs:.1f} s; obs smoke {obs_res['seconds']:.1f} s; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        + "; ".join(f"{k.replace('_', ' ')} {v:.1f} s"
+                    for k, v in lm_secs.items())
+        + f"; total {time.perf_counter() - t_start:.1f} s")
     line = kernel_line(
         {"fused_memory_update": fused + fused_tiles, "ring_sum": ring,
          "worker_sum": wsum,

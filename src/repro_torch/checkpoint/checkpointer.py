@@ -1,10 +1,12 @@
 """A minimal checkpointer: an npz payload and a JSON manifest (port of
 ``repro/checkpoint/checkpointer.py``).
 
-A tree is nested dicts, lists and tuples of tensors or numpy arrays; it is
-saved as flat npz entries keyed by its path (``"carry/v0/w"``).  Tensors go
+A tree is nested dicts, lists, tuples and dataclasses (a ``TrainState``,
+an ``ArtemisDistState``: their fields in declaration order) of tensors,
+numpy arrays or Python numbers; it is saved as flat npz entries keyed by
+its path (``"carry/v0/w"``), a Python number as a 0-d entry.  Tensors go
 to the host (``.cpu()``) on save and back to the device of the matching
-leaf of ``like`` on restore.  numpy and json only: nothing is pickled, and
+leaf of ``like`` on restore, a number comes back as a number of its type.  numpy and json only: nothing is pickled, and
 ``np.load`` is called with ``allow_pickle=False``.
 
 Layout: one ``step_XXXXXXXX`` directory per save and a ``LATEST`` pointer.
@@ -17,6 +19,7 @@ target tree first and raises one ``ValueError`` listing every mismatch.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -25,30 +28,41 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.model import flatten_params
+
 Tree = Any
 
 _SAFE = re.compile(r"[^A-Za-z0-9_.-]")
 
 
-def _flatten(tree: Tree, prefix: str = "") -> Dict[str, Any]:
-    """{path: leaf} in the tree's own order (dict keys sorted)."""
-    if isinstance(tree, dict):
-        items = [(str(k), tree[k]) for k in sorted(tree, key=str)]
-    elif isinstance(tree, (list, tuple)):
-        items = [(str(i), v) for i, v in enumerate(tree)]
-    else:
-        return {prefix or "_root": tree}
-    out = {}
-    for k, v in items:
-        out.update(_flatten(v, f"{prefix}/{_SAFE.sub('_', k)}" if prefix
-                            else _SAFE.sub("_", k)))
-    return out
+def _fields(tree) -> Optional[list]:
+    """A dataclass instance's (name, value) pairs, else None."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f.name, getattr(tree, f.name))
+                for f in dataclasses.fields(tree)]
+    return None
+
+
+def _safe(key) -> str:
+    return _SAFE.sub("_", str(key))
+
+
+def _flatten(tree: Tree) -> Dict[str, Any]:
+    """{path: leaf} in the tree's own order (dict keys sorted), each key
+    made safe for an npz entry's name; a bare leaf is ``"_root"``."""
+    return {k or "_root": v
+            for k, v in flatten_params(tree, name=_safe).items()}
 
 
 def _unflatten(like: Tree, leaves: Dict[str, Any], prefix: str = "") -> Tree:
+    fields = _fields(like)
+    if fields is not None:
+        return dataclasses.replace(like, **{
+            k: _unflatten(v, leaves, f"{prefix}/{k}" if prefix else k)
+            for k, v in fields})
     if isinstance(like, dict):
-        return {k: _unflatten(v, leaves, f"{prefix}/{_SAFE.sub('_', str(k))}"
-                              if prefix else _SAFE.sub("_", str(k)))
+        return {k: _unflatten(v, leaves, f"{prefix}/{_safe(k)}"
+                              if prefix else _safe(k))
                 for k, v in like.items()}
     if isinstance(like, (list, tuple)):
         vals = [_unflatten(v, leaves, f"{prefix}/{i}" if prefix else str(i))
@@ -69,6 +83,10 @@ def _dtype(x) -> np.dtype:
     if isinstance(x, torch.Tensor):
         return np.dtype(str(x.dtype).removeprefix("torch."))
     return np.asarray(x).dtype
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
 
 
 def _atomic_write(path: str, write_fn) -> None:
@@ -154,9 +172,9 @@ def _validate(manifest: dict, flat_like: dict, where: str) -> None:
         ref = flat_like[k]
         shape = tuple(manifest["shapes"][k])
         dtype = np.dtype(manifest["dtypes"][k])
-        if shape != tuple(ref.shape):
+        if shape != _shape(ref):
             problems.append(f"{k}: shape {shape} != expected "
-                            f"{tuple(ref.shape)}")
+                            f"{_shape(ref)}")
         if dtype != _dtype(ref):
             problems.append(f"{k}: dtype {dtype} != expected {_dtype(ref)}")
     if problems:
@@ -167,8 +185,9 @@ def _validate(manifest: dict, flat_like: dict, where: str) -> None:
 def restore(ckpt_dir: str, like: Tree, step: Optional[int] = None) -> Tree:
     """Restore step ``step`` (default: LATEST) into the structure of
     ``like``: a tensor leaf comes back as a tensor on that leaf's device, a
-    numpy leaf as a numpy array.  Raises ``ValueError`` if the manifest
-    disagrees with ``like`` on keys, shapes or dtypes."""
+    numpy leaf as a numpy array, a Python number as one.  Raises
+    ``ValueError`` if the manifest disagrees with ``like`` on keys, shapes
+    or dtypes."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -179,6 +198,10 @@ def restore(ckpt_dir: str, like: Tree, step: Optional[int] = None) -> Tree:
     with np.load(os.path.join(d, "arrays.npz"), allow_pickle=False) as data:
         for key, ref in flat_like.items():
             a = data[key]
-            leaves[key] = (torch.from_numpy(a).to(ref.device)
-                           if isinstance(ref, torch.Tensor) else a)
+            if isinstance(ref, torch.Tensor):
+                leaves[key] = torch.from_numpy(a).to(ref.device)
+            elif isinstance(ref, (bool, int, float)):
+                leaves[key] = type(ref)(a.item())
+            else:
+                leaves[key] = a
     return _unflatten(like, leaves)

@@ -10,6 +10,7 @@ from repro_torch import default_device
 from repro_torch.core.artemis import ArtemisState
 from repro_torch.core.dist import ArtemisDistState
 from repro_torch.core.federated import Problem
+from repro_torch.models.model import flatten_params
 
 
 def _tensor(a, device, dtype=torch.float32) -> torch.Tensor:
@@ -49,6 +50,17 @@ def toy_params(params, *, device=None):
         else:
             out[key] = _tensor(params[key], dev)
     return out
+
+
+def lm_params(params, *, device=None):
+    """A language model's parameters from the reference's nested params
+    (dicts, tuples and lists of numpy arrays, as ``jax.tree.map(np.asarray,
+    model.init(key))`` gives them): the flat dict of ``repro_torch.models.
+    model``, keyed by leaf path in the reference's flatten order, each
+    stacked ``[L, ...]`` leaf kept whole, dtypes kept."""
+    dev = default_device(device)
+    return {k: torch.from_numpy(np.array(a)).to(dev)
+            for k, a in flatten_params(params).items()}
 
 
 def dist_state(h, hbar, e, acc, prev_active, step, *,

@@ -342,10 +342,14 @@ class ArtemisDistState:
     step: int                  # communicating steps done
 
 
-def init_dist_state(cfg: DistConfig, params: Sequence, n_workers: int = 1,
-                    *, device=None) -> ArtemisDistState:
-    """Zero state for ``params`` (tensors or shapes, in flatten order)."""
+def init_dist_state(cfg: Optional[DistConfig], params: Sequence,
+                    n_workers: int = 1, *, device=None) -> ArtemisDistState:
+    """Zero state for ``params`` (tensors or shapes, in flatten order);
+    ``cfg=None`` (no wire) gives the leaf wire's stubs, as the reference's
+    does."""
     dev = default_device(device)
+    if cfg is None:
+        cfg = DistConfig(wire="leaf", variant="sgd")    # stubs everywhere
     mdt = getattr(torch, cfg.memory_dtype)
 
     def zeros(shape, dt=torch.float32):
@@ -687,11 +691,17 @@ def _fold_local(dcfg: DistConfig, art: ArtemisDistState, g):
                                           for a in art.acc]))
 
 
-def make_train_step(model, optimizer, dcfg: DistConfig, n_workers: int,
-                    device=None, *, noise: Optional[MeshNoiseSource] = None,
+def make_train_step(model, optimizer, dcfg: Optional[DistConfig],
+                    n_workers: int = 1, device=None, *,
+                    noise: Optional[MeshNoiseSource] = None,
                     grad_fn: Optional[Callable] = None):
     """Build ``(init_state, step_fn)`` for W = ``n_workers`` simulated
     workers on ``device`` (CUDA unless the caller names another).
+
+    ``dcfg=None`` is the reference's plain data-parallel baseline: the
+    whole batch's gradient, no wire, the optimizer step, and
+    ``artemis.step + 1`` (the state holds the leaf wire's stubs);
+    ``n_workers``, ``noise`` and ``grad_fn`` do not apply.
 
     ``init_state(params)`` takes the params dict (the model's leaf names
     in flatten order).  ``step_fn(state, batch) -> (state, (loss,
@@ -703,7 +713,6 @@ def make_train_step(model, optimizer, dcfg: DistConfig, n_workers: int,
     ``vmap_grads(model)``.
     """
     dev = default_device(device)
-    grad_fn = vmap_grads(model) if grad_fn is None else grad_fn
     source = noise
 
     def init_state(params: Params) -> TrainState:
@@ -714,6 +723,27 @@ def make_train_step(model, optimizer, dcfg: DistConfig, n_workers: int,
                                                   device=dev),
                           step=0)
 
+    def _apply(state, agg, art, loss, metrics):
+        updates, opt_state = optimizer.update(agg, state.opt_state,
+                                              state.step)
+        params = {k: p - u.to(p.dtype)
+                  for (k, p), u in zip(state.params.items(), updates)}
+        return TrainState(params, opt_state, art, state.step + 1), (loss,
+                                                                    metrics)
+
+    if dcfg is None:
+        value_grad = torch.func.grad_and_value(model.loss, has_aux=True)
+
+        def plain_step(state: TrainState, batch):
+            grads, (loss, metrics) = value_grad(state.params, batch)
+            return _apply(state, list(grads.values()),
+                          dataclasses.replace(state.artemis,
+                                              step=state.artemis.step + 1),
+                          loss, metrics)
+
+        return init_state, plain_step
+
+    grad_fn = vmap_grads(model) if grad_fn is None else grad_fn
     shapes = leaves = None
 
     def step_fn(state: TrainState, batch):
@@ -739,13 +769,8 @@ def make_train_step(model, optimizer, dcfg: DistConfig, n_workers: int,
             agg = bucketing.unbucketize(layout, ghat, like=plist)
         else:
             agg, art, obs = leaf_aggregate(dcfg, art, g, axis, draws)
-        updates, opt_state = optimizer.update(agg, state.opt_state,
-                                              state.step)
-        params = {k: p - u.to(p.dtype)
-                  for (k, p), u in zip(state.params.items(), updates)}
         if obs is not None:
             metrics = {**metrics, "obs": obs}
-        return TrainState(params, opt_state, art, state.step + 1), (loss,
-                                                                    metrics)
+        return _apply(state, agg, art, loss, metrics)
 
     return init_state, step_fn

@@ -3,9 +3,11 @@ exp1 to exp5 and ``benchmarks/paper_figs.py``'s ``fig4_bits``,
 ``table3_gamma_max`` and ``thm3_variance_lower_bound``), at the reference's
 N, d, iterations and step sizes; the fault model's recovery checks
 (``fault_matrix``, as ``benchmarks/fault_bench.py::run_matrix``); the mesh
-wire's training run (``toy_mesh_train``), and one step of compressed SGD
-through the ops API (``compressed_sgd_step``).  Each returns its numbers;
-none prints.
+wire's training run (``toy_mesh_train``), one step of compressed SGD
+through the ops API (``compressed_sgd_step``), and the language-model
+examples (``examples/quickstart.py``, ``train_lm.py``, ``serve_lm.py``:
+``quickstart``, ``train_lm``, ``serve_lm``).  Each returns its numbers;
+none prints but the CLI, ``python -m repro_torch.experiments <name>``.
 
 Every function runs on ``device`` (CUDA unless the caller passes another)
 with ``backend="cuda"``, so the squant uplinks go through the fused kernels
@@ -353,3 +355,117 @@ def compressed_sgd_step(model, params: Dict[str, torch.Tensor], batch, lr,
         c, shape = ops.encode(grads[name], ui, generator, s=s)
         out[name] = ops.apply_update(params[name], c, lr, shape)
     return out, loss
+
+
+# ---------------------------------------------------------------------------
+# the language-model examples
+# ---------------------------------------------------------------------------
+
+def quickstart(steps: int = 50, device=None) -> Dict:
+    """``examples/quickstart.py``: reduced starcoder2 with Artemis (s = 4,
+    telemetry on) over one simulated worker, adam(3e-3), on the synthetic
+    corpus at batch 8, seq 128.  Returns the losses and each step's wire
+    bytes."""
+    from repro_torch import configs
+    from repro_torch.data.synthetic import TokenStream, TokenStreamConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import span
+    from repro_torch.optim import adam
+    dev = default_device(device)
+    cfg = configs.get_config("starcoder2-7b", reduced=True)
+    model = build_model(cfg)
+    # Artemis over one worker: the uplink int8 ring and memory, the
+    # zero-byte downlink broadcast; telemetry adds the obs dict
+    dcfg = dist.DistConfig(variant="artemis", s=4, telemetry=True)
+    init_state, step_fn = dist.make_train_step(model, adam(3e-3), dcfg, 1,
+                                               device=dev)
+    state = init_state(model.init(torch.Generator(device=dev).manual_seed(0)))
+    stream = TokenStream(TokenStreamConfig(vocab=cfg.vocab, seq_len=128,
+                                           batch=8), device=dev)
+    losses, wire = [], []
+    for i in range(steps):
+        with span("quickstart/step"):
+            state, (loss, m) = step_fn(state, stream.batch_at(i))
+        losses.append(loss)
+        wire.append(float(m["obs"]["wire_bytes"]))
+    return {"losses": torch.stack(losses).tolist(), "wire_bytes": wire}
+
+
+def lm_config(full_100m: bool = False):
+    """``examples/train_lm.py``'s model: ``lm-20m`` (6 x 384, vocab 4096) or
+    ``lm-100m`` (12 x 768, 12 heads, kv 4, d_ff 3072, vocab 8192)."""
+    from repro_torch.models.config import ModelConfig
+    if full_100m:
+        return ModelConfig(name="lm-100m", family="dense", n_layers=12,
+                           d_model=768, n_heads=12, n_kv=4, d_ff=3072,
+                           vocab=8192, activation="silu", q_chunk=256,
+                           xent_chunk=256, remat=False)
+    return ModelConfig(name="lm-20m", family="dense", n_layers=6,
+                       d_model=384, n_heads=6, n_kv=2, d_ff=1536,
+                       vocab=4096, activation="silu", q_chunk=128,
+                       xent_chunk=128, remat=False)
+
+
+def train_lm(steps: int = 300, full_100m: bool = False,
+             ckpt_dir: Optional[str] = None, device=None) -> Dict:
+    """``examples/train_lm.py`` through ``launch.train``: artemis over one
+    worker (the example's host mesh on one device), batch 16, seq 256,
+    adam(3e-3), a checkpoint every 100 steps when ``ckpt_dir`` is given.
+    Raises if the loss drops by no more than 0.5 nats (the example's
+    check).  Returns the logs and the drop."""
+    from repro_torch.launch import train as T
+    cfg = lm_config(full_100m)
+    argv = ["--arch", cfg.name, "--steps", str(steps), "--batch", "16",
+            "--seq", "256", "--dist", "artemis", "--optimizer", "adam",
+            "--lr", "3e-3", "--log-every", "20",
+            "--device", str(default_device(device))]
+    if ckpt_dir:
+        argv += ["--ckpt-dir", ckpt_dir, "--ckpt-every", "100"]
+    logs = T.main(argv, config=cfg)
+    drop = logs[0]["loss"] - logs[-1]["loss"]
+    if not drop > 0.5:
+        raise RuntimeError(f"training did not learn: the loss dropped "
+                           f"{drop:.3f} nats over {steps} steps")
+    return {"logs": logs, "drop": drop}
+
+
+def serve_lm(device=None):
+    """``examples/serve_lm.py``: the reduced mixtral (MoE and a sliding
+    window) served greedily, batch 4, prompt 16, 24 new tokens."""
+    from repro_torch.launch import serve as S
+    return S.main(["--arch", "mixtral-8x22b", "--reduced", "--batch", "4",
+                   "--prompt-len", "16", "--gen", "24",
+                   "--device", str(default_device(device))])
+
+
+def main(argv=None) -> int:
+    import argparse
+    import json
+    ap = argparse.ArgumentParser(
+        description="Run one of the language-model examples on the port.")
+    ap.add_argument("name", choices=["quickstart", "train_lm", "serve_lm"])
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; raises without it)")
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--full-100m", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    args = ap.parse_args(argv)
+    steps = {} if args.steps is None else {"steps": args.steps}
+    if args.name == "quickstart":
+        res = quickstart(device=args.device, **steps)
+        print(json.dumps({"first_loss": res["losses"][0],  # repro-lint: allow=print-in-library (CLI)
+                          "last_loss": res["losses"][-1],
+                          "wire_bytes": res["wire_bytes"][-1]}))
+    elif args.name == "train_lm":
+        res = train_lm(full_100m=args.full_100m, ckpt_dir=args.ckpt_dir,
+                       device=args.device, **steps)
+        print(json.dumps({"first_loss": res["logs"][0]["loss"],  # repro-lint: allow=print-in-library (CLI)
+                          "last_loss": res["logs"][-1]["loss"],
+                          "drop": res["drop"]}))
+    else:
+        serve_lm(device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,1 +1,2 @@
-"""Launch-side models of the port (the mesh wire models)."""
+"""Launch-side tools of the port: the train and serve drivers and the mesh
+wire models (``roofline``)."""

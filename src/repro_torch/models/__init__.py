@@ -1,1 +1,2 @@
-"""Models of the port (``ToyMLP`` for the mesh wire)."""
+"""Models of the port: ``ToyMLP`` for the mesh wire, and the LM stack
+(``config``, ``layers``, ``moe``, ``ssm``, ``rglru``, ``model``)."""

@@ -74,6 +74,41 @@ def test_restore_validates_keys_shapes_dtypes(tmp_path):
                                                        dtype=torch.int32)})
 
 
+def _train_state(step=5):
+    from repro_torch.core import dist as tdist
+    params = {"layers/w": torch.randn(3, 4), "head": torch.randn(4)}
+    art = tdist.init_dist_state(tdist.DistConfig(), list(params.values()), 2,
+                                device="cpu")
+    art = dataclasses.replace(art, h=torch.randn(art.h.shape), step=step)
+    opt = {"m": [torch.randn(3, 4), torch.randn(4)],
+           "v": [torch.rand(3, 4), torch.rand(4)]}
+    return tdist.TrainState(params, opt, art, step)
+
+
+def test_dataclass_state_round_trips(tmp_path):
+    """A ``TrainState`` with its ``ArtemisDistState``: fields in order,
+    Python ints as 0-d entries that come back as ints, every tensor bit
+    for bit; a state of another layout is refused."""
+    state = _train_state()
+    ck.save(str(tmp_path), 5, state)
+    keys = ck.read_manifest(str(tmp_path))["keys"]
+    assert {"step", "artemis/step", "artemis/h", "params/layers_w",
+            "opt_state/m/0"} <= set(keys)
+    like = dataclasses.replace(_train_state(step=0), params={
+        k: torch.zeros_like(v) for k, v in state.params.items()})
+    out = ck.restore(str(tmp_path), like)
+    assert type(out) is type(state) and type(out.artemis) is type(
+        state.artemis)
+    assert out.step == 5 and type(out.step) is int
+    assert out.artemis.step == 5 and type(out.artemis.step) is int
+    assert list(out.params) == list(state.params)
+    for a, b in zip(ck._flatten(out).values(), ck._flatten(state).values()):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    other = dataclasses.replace(like, params={"head": torch.zeros(5)})
+    with pytest.raises(ValueError, match="head"):
+        ck.restore(str(tmp_path), other)
+
+
 def test_read_manifest_round_trips_extra(tmp_path):
     ck.save(str(tmp_path), 2, _tree(), extra={"fingerprint": "abc"})
     assert ck.read_manifest(str(tmp_path))["extra"]["fingerprint"] == "abc"

@@ -710,3 +710,71 @@ def test_leaf_and_faulted_mesh_on_card(cuda_device):
     for res in (leaf, flt):
         assert all(torch.isfinite(p).all() for p in res["params"].values())
     assert len(flt["obs"]) == 3
+
+
+# ---------------------------------------------------------------------------
+# the LM stack on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "falcon-mamba-7b",
+                                  "recurrentgemma-2b", "whisper-tiny"])
+def test_lm_on_card_matches_cpu(cuda_device, arch):
+    """A reduced arch's loss and decode logits on the card against the same
+    model on the CPU, at f32 compute: loss to rtol 1e-5, logits to atol
+    1e-4 (the card's matmuls sum in another order)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(configs.get_config(arch, reduced=True),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                                     dtype=torch.int32)}
+    enc = None
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(2, cfg.n_frames, cfg.d_model,
+                                      generator=gen)
+        enc = torch.randn(2, cfg.n_frames, cfg.d_model, generator=gen)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = {k: v.to(dev) for k, v in params.items()}
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.inference_mode():
+            loss, _ = model.loss(p, b)
+            cache = model.init_cache(2, 8, device=dev)
+            logits = []
+            for i in range(8):
+                lg, cache = model.decode_step(
+                    p, cache, b["tokens"][:, i], i,
+                    enc_out=None if enc is None else enc.to(dev))
+                logits.append(lg.cpu())
+        out[str(dev)] = (float(loss), torch.stack(logits))
+    (lc, gc), (ld, gd) = out["cpu"], out[str(cuda_device)]
+    assert abs(ld - lc) <= 1e-5 * abs(lc)
+    torch.testing.assert_close(gd, gc, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_lm_train_cli_on_card(cuda_device, tmp_path):
+    """The train CLI on the card (artemis, W = 2): the loss falls, the ring
+    launches bucket_acc W times a step, and a resumed run ends on the same
+    bits as the one that did not stop."""
+    import numpy as np
+    from repro_torch.launch import train
+    base = ["--arch", "starcoder2-7b", "--reduced", "--batch", "4", "--seq",
+            "64", "--dist", "artemis", "--workers", "2", "--log-every", "1"]
+    a0 = tbr.bucket_acc.launches
+    logs = train.main(base + ["--steps", "6", "--ckpt-dir",
+                              str(tmp_path / "a")])
+    assert tbr.bucket_acc.launches - a0 == 2 * 6
+    assert logs[-1]["loss"] < logs[0]["loss"]
+    train.main(base + ["--steps", "3", "--ckpt-dir", str(tmp_path / "b")])
+    train.main(base + ["--steps", "3", "--ckpt-dir", str(tmp_path / "b"),
+                       "--resume"])
+    a, b = (np.load(tmp_path / d / "step_00000006" / "arrays.npz")
+            for d in ("a", "b"))
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
