@@ -153,7 +153,19 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
    worker a step (``launch/roofline.py::bucketed_wire_model``), exactly W
    bucket_acc launches a step, its stack the one phase 3 held to the
    plain hop; the loss must fall, by more than 0.5 nats (the example's
-   check).
+   check);
+27. dry run: ``launch/dryrun.py`` on fake tensors for lm-100m's train step
+   (phase 26's W, batch and optimizer) and starcoder2-7b's decode step
+   against phase 25's 64-token cache, without device memory; each peak
+   estimate beside phase 25's and 26's measured peak;
+28. bench: ``python -m repro_torch.bench --fast`` in a subprocess on the
+   card (every suite: the paper's figures, the kernels, the sweep engine
+   and the mesh wire, the fault defenses), exit 0, every kernel row
+   (``kernel/b1`` to ``b7`` and ``worker_sum``) with its device µs read
+   from the CUDA trace;
+29. analysis: ``python -m repro_torch.analysis --ci`` in a subprocess on
+   the card (the lint, the launch audit, the wire checks and host-sync),
+   exit 0, its host-sync findings listed (each in the port's baseline).
 
 The simulator's path (phases 4 and 5), the fault path (phases 13 to 15),
 the telemetry grid (17), the mesh's (phases 7 and 8), the leaf wire's
@@ -163,6 +175,9 @@ set to 0 just before and read just after; the pg ring's ranks count their
 own.  The kernels line adds the simulator's, the fault path's and the
 telemetry grid's launches of B1, B2 and the worker sum, and every mesh
 and LM path's of B3 and B4.
+
+Phases 28 and 29 run after the launch counts are read and count nothing
+for the kernels line (their own processes).
 
 It prints one ``{"kernels": [...]}`` line, then the card's name and power
 limit, then, last, ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -326,29 +341,13 @@ def call_ms(fn, runs=25, per_run=10):
 
 def device_trace(fn, calls=25, pad=8):
     """The device kernels that ``calls`` calls of ``fn`` ran, as the
-    profiler's CUDA trace records them: (summed duration in ms per call,
-    kernels per call, kernel names), or (None, 0, []) if the trace holds no
-    kernel.  A trace can drop a few kernels at its ends, so the calls run
-    between ``pad`` spin kernels on each side, left out of the sums."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(pad):
-            torch.cuda._sleep(1000)
-        for _ in range(calls):
-            fn()
-        for _ in range(pad):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.events() if e.device_type == cuda
-              and "spin_kernel" not in e.name]
-    if not events:
-        return None, 0, []
-    ms = sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
-    return ms, len(events) / calls, sorted({e.name for e in events})
+    profiler's CUDA trace records them (``repro_torch.bench.device_trace``,
+    which pads the calls with spin kernels and retries an empty trace):
+    (summed duration in ms per call, kernels per call, kernel names), or
+    (None, 0, []) if the trace holds no kernel."""
+    from repro_torch.bench import device_trace as trace
+    us, per_call, names = trace(fn, calls, pad)
+    return (None if us is None else us / 1e3), per_call, names
 
 
 def device_ms(fn, calls=25):
@@ -2544,6 +2543,123 @@ def lm_train_phase(dev):
     return res
 
 
+# the kernel rows of ``python -m repro_torch.bench kernel``: every kernel of
+# the kernels line has one (B3 three: out of place, hops 0 and 1)
+BENCH_KERNEL_ROWS = ("b1_fused_memory_update", "b2_ring_sum", "worker_sum",
+                     "b3_bucket_acc", "b3_hop0", "b3_hop1",
+                     "b4_bucket_ring_sum", "b5_squant_encode",
+                     "b6_squant_decode", "b6_squant_decode_narrow",
+                     "b7_dequant_apply")
+
+
+def _module_run(args, timeout):
+    """``python -m <args>`` from the checkout, on the card; (seconds, the
+    completed process)."""
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m"] + args, capture_output=True,
+                          text=True, timeout=timeout, env=env, cwd=ROOT)
+    return time.perf_counter() - t0, proc
+
+
+def bench_phase():
+    """``python -m repro_torch.bench --fast`` on the card: every suite
+    passes, and every kernel row holds a device time from the CUDA
+    trace."""
+    import shutil
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_bench")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        secs, proc = _module_run(["repro_torch.bench", "--fast",
+                                  "--out-dir", out_dir], 600)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    check(proc.returncode == 0, f"bench --fast exited {proc.returncode}: "
+                                f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    # derived holds commas of its own: split each line at its first two
+    rows = {r[0]: r for r in (ln.split(",", 2)
+                              for ln in proc.stdout.splitlines())
+            if len(r) == 3}
+    kernel_us = {}
+    for name in BENCH_KERNEL_ROWS:
+        row = rows.get(f"kernel/{name}")
+        check(row is not None and "device_us=" in row[2]
+              and "device_us=not_measured" not in row[2],
+              f"bench: kernel/{name} has no device time: {row}")
+        kernel_us[name] = float(row[1])
+        log(f"bench kernel/{name}: {row[1]} us; {row[2][:300]}")
+    for name, row in rows.items():
+        if not name.startswith("kernel/") and name != "name":
+            log(f"bench {name}: {row[1]} us per call; {row[2][:200]}")
+    log(f"bench --fast: {len(rows) - 1} rows in {secs:.1f} s, exit 0")
+    return {"seconds": secs, "kernel_us": kernel_us, "rows": len(rows) - 1}
+
+
+def analysis_phase():
+    """``python -m repro_torch.analysis --ci`` on the card: exit 0; its
+    host-sync findings (each suppressed by the port's baseline) listed."""
+    out = os.path.join(ROOT, "build", "chip_smoke_analysis.json")
+    try:
+        secs, proc = _module_run(["repro_torch.analysis", "--ci", "-q",
+                                  "--json", out], 600)
+        with open(out) as fh:
+            rep = json.load(fh)
+    finally:
+        if os.path.exists(out):
+            os.remove(out)
+    check(proc.returncode == 0, f"analysis --ci exited {proc.returncode}: "
+                                f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    syncs = [f for f in rep["findings"] if f["rule"] == "host-sync"]
+    for f in syncs:
+        log(f"analysis host-sync: {f['path']}:{f['line']} {f['message']} "
+            f"(suppressed: {f['suppressed']})")
+    log(f"analysis --ci: {rep['counts']} in {secs:.1f} s, exit 0; "
+        f"{len(syncs)} host-sync findings")
+    return {"seconds": secs, "counts": rep["counts"],
+            "host_syncs": len(syncs)}
+
+
+def dryrun_phase(dev, serve_res, train_res):
+    """The dry run on fake tensors of lm-100m's train step (phase 26's W,
+    batch, sequence and optimizer) and starcoder2-7b's decode step at phase
+    25's batch and 64-token cache: no device memory moves, and each peak
+    estimate stands beside the measured one."""
+    import torch
+    from repro_torch.launch import dryrun
+    before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    recs = {
+        "lm-100m train": (dryrun.lower_one(
+            "lm-100m", "train_4k", "artemis", workers=LM_TRAIN_W,
+            batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, optimizer="adam"),
+            train_res["peak_bytes"]),
+        "starcoder2-7b decode": (dryrun.lower_one(
+            "starcoder2-7b", "decode_32k", batch=LM_SERVE_B,
+            seq=LM_SERVE_PROMPT + LM_SERVE_GEN),
+            serve_res["starcoder2-7b"]["peak_bytes"])}
+    secs = time.perf_counter() - t0
+    check(torch.cuda.memory_allocated(dev) == before,
+          "dry run: device memory moved")
+    out = {}
+    for name, (rec, measured) in recs.items():
+        check(rec["status"] == "ok" and rec["peak_bytes"] > 0,
+              f"dry run {name}: {rec}")
+        out[name] = {"peak_bytes": rec["peak_bytes"], "measured": measured,
+                     "ratio": rec["peak_bytes"] / measured,
+                     "flops": rec["flops"], "dominant": rec["dominant"]}
+        log(f"dry run {name}: peak estimate {rec['peak_bytes']} bytes "
+            f"against the measured {measured} "
+            f"(x{rec['peak_bytes'] / measured:.4f}); "
+            f"{rec['flops']:.4g} FLOPs, params {rec['param_bytes']}, "
+            f"optimizer {rec['optimizer_bytes']}, artemis "
+            f"{rec['artemis_bytes']} bytes; compute {rec['compute_s']:.4g} s, "
+            f"memory {rec['memory_s']:.4g} s, wire {rec['wire_s']:.4g} s "
+            f"({rec['dominant']}); traced in {rec['trace_s']} s")
+    log(f"dry run: {secs:.1f} s")
+    return {"seconds": secs, **out}
+
+
 def kernel_line(cases, launches):
     """``cases`` and ``launches`` map each kernel's name to its kernel-phase
     cases and to its launches on its path's run."""
@@ -2739,6 +2855,8 @@ def main():
         lm_secs[name] = time.perf_counter() - t_lm
         lm_l[name] = mesh_counts()
     serve_res, train_res = lm_res["lm_serve"], lm_res["lm_train"]
+    tool_res = {"dryrun": dryrun_phase(dev, serve_res, train_res),
+                "bench": bench_phase(), "analysis": analysis_phase()}
     check(tuple([LM_TRAIN_W] + train_res["layout"]) == lm_stacks["train"],
           f"lm train: its stack {train_res['layout']} at W = {LM_TRAIN_W} "
           f"is not the one held to the plain hop, {lm_stacks['train']}")
@@ -2765,6 +2883,8 @@ def main():
         f"ops phases {ops_secs:.1f} s; obs smoke {obs_res['seconds']:.1f} s; "
         + "; ".join(f"{k.replace('_', ' ')} {v:.1f} s"
                     for k, v in lm_secs.items())
+        + "; " + "; ".join(f"{k} {v['seconds']:.1f} s"
+                           for k, v in tool_res.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")
     line = kernel_line(
         {"fused_memory_update": fused + fused_tiles, "ring_sum": ring,

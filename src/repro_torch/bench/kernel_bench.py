@@ -1,0 +1,324 @@
+"""The hand-written kernels at the main path's shapes (port of
+``benchmarks/kernel_bench.py``).
+
+On the card each row is one kernel of ``PERF.md``'s table: B1
+``fused_memory_update`` on the round's rows, B2 ``ring_sum`` on the round's
+strided view, ``worker_sum``, B3 ``bucket_acc`` (out of place, and the
+ring's in-place hops 0 and 1), B4 ``bucket_ring_sum``, B5
+``squant_encode``, B6 ``squant_decode`` (whole (256, 256) tiles and (256,
+8) blocks, which take one element a thread) and B7 ``dequant_apply``.  The
+row's value is the kernel's device µs per launch read from the
+``torch.profiler`` CUDA trace (never host-inclusive); ``derived`` holds the
+bound (the bytes the function must move, each input read once and each
+output written once, at ``launch/roofline.HBM_BW``, 3.35 TB/s), the plain
+version's device µs, and, where one PyTorch call computing the same
+function runs as one kernel, that call's device µs.  Every kernel is first
+held to its plain version on the same inputs.  The reference's traffic rows
+follow: B1 against the unfused encode, decode and update it replaces, and
+the compression API's wire ratio.  ``b1_probe`` times B1 and B5 at the
+probe [16384, 4096] (ROADMAP §B item 3).
+
+On the CPU no kernel runs: each row times the plain version on the host
+clock and says so; its value is never a kernel's.  At ``fast`` on the CPU
+the shapes are cut to toy sizes; on the card they stay the main path's,
+with fewer calls a trace.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.bench import Context, Row, device_trace, fmt, host_us
+from repro_torch.kernels import ops
+from repro_torch.kernels.bucket_ring import (
+    bucket_acc, bucket_acc_hop_, bucket_acc_hop_plain_, bucket_acc_plain,
+    bucket_ring_sum, bucket_ring_sum_plain)
+from repro_torch.kernels.fused_memory import (
+    fused_memory_update, fused_memory_update_plain)
+from repro_torch.kernels.ring_sum import (
+    ring_sum, ring_sum_plain, worker_sum, worker_sum_plain)
+from repro_torch.kernels.squant import (
+    dequant_apply, dequant_apply_plain, squant_decode, squant_decode_plain,
+    squant_encode, squant_encode_plain)
+from repro_torch.launch.roofline import HBM_BW
+
+TILE = (256, 256)
+# the main path's shapes (PERF.md's table): the grid's 128 cells of N = 20
+# workers at d = 40, the mesh's W = 8 stacks, a ToyMLP(12, 1024) weight as
+# the compression API packs it; and the probe
+MAIN = {"b1": (2560, 40), "b2": (20, 128, 40), "wsum": (128, 20, 40),
+        "b3": (128, 3076, 256), "hop": (8, 16, 3076, 256),
+        "b4": (8, 16, 49, 64), "ops": (4096, 256), "narrow": (256, 8),
+        "probe": (16384, 4096)}
+# the CPU's smoke shapes (plain versions only)
+TOY = {"b1": (64, 40), "b2": (4, 8, 40), "wsum": (8, 4, 40),
+       "b3": (16, 12, 64), "hop": (4, 2, 12, 64), "b4": (4, 2, 7, 64),
+       "ops": (512, 256), "narrow": (256, 8), "probe": (512, 512)}
+
+
+@dataclasses.dataclass
+class Case:
+    name: str
+    kernel: Callable
+    plain: Callable
+    bytes: float                    # each input read once, each output once
+    library: Optional[Callable] = None
+    library_name: str = ""
+
+
+def _shapes(ctx: Context) -> Dict[str, tuple]:
+    return TOY if ctx.fast and not ctx.cuda else MAIN
+
+
+def _gen(dev, seed: int) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _payload(dev, shape, seed: int):
+    g = _gen(dev, seed)
+    q = torch.randint(-4, 5, shape, generator=g, device=dev,
+                      dtype=torch.int8)
+    return g, q, torch.rand(tuple(shape[:-1]) + (1,), generator=g,
+                            device=dev)
+
+
+def _tiles(shape, block) -> int:
+    return (shape[0] // block[0]) * (shape[1] // block[1])
+
+
+def _tile_views(shape, block):
+    (m, n), (bm, bn) = shape, block
+    return (m // bm, bm, n // bn, bn), (m // bm, 1, n // bn, 1)
+
+
+def b1_case(dev, shape, seed: int, block=None) -> Case:
+    rows, d = shape
+    block = (1, d) if block is None else block
+    g = _gen(dev, seed)
+    gg, h = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
+    u = torch.rand(shape, generator=g, device=dev)
+    n = gg.numel()
+    # reads g, h, u, writes q (1 B) and h_new per element, a 4 B scale a tile
+    return Case(f"fused_memory_update {list(shape)} in {tuple(block)}",
+                lambda: fused_memory_update(gg, h, u, 0.25, s=1, block=block),
+                lambda: fused_memory_update_plain(gg, h, u, 0.25, s=1,
+                                                  block=block),
+                17.0 * n + 4.0 * _tiles(shape, block))
+
+
+def b2_case(dev, shape, seed: int) -> Case:
+    n, m, c = shape
+    g = _gen(dev, seed)
+    # made [M, N, C] and passed transposed, as the Artemis round passes it
+    q = torch.randint(-2, 3, (m, n, c), generator=g, device=dev,
+                      dtype=torch.int8).transpose(0, 1)
+    sc = torch.rand(m, n, 1, generator=g, device=dev).transpose(0, 1)
+    return Case(f"ring_sum {list(shape)} strided",
+                lambda: ring_sum(q, sc), lambda: ring_sum_plain(q, sc),
+                n * m * c + 4.0 * n * m + 4.0 * m * c)
+
+
+def wsum_case(dev, shape, seed: int) -> Case:
+    x = torch.randn(shape, generator=_gen(dev, seed), device=dev)
+    out = shape[0] * shape[2]
+    return Case(f"worker_sum {list(shape)}", lambda: worker_sum(x),
+                lambda: worker_sum_plain(x), 4.0 * x.numel() + 4.0 * out,
+                lambda: torch.sum(x, dim=-2), "torch.sum")
+
+
+def b3_case(dev, shape, seed: int) -> Case:
+    g, q, sc = _payload(dev, shape, seed)
+    acc = torch.randn(shape, generator=g, device=dev)
+    n = q.numel()
+    return Case(f"bucket_acc {list(shape)}",
+                lambda: bucket_acc(acc, q, sc),
+                lambda: bucket_acc_plain(acc, q, sc),
+                9.0 * n + 4.0 * (n // shape[-1]),
+                lambda: torch.addcmul(acc, q, sc), "torch.addcmul")
+
+
+def hop_case(dev, shape, seed: int, hop: int) -> Case:
+    _, q, sc = _payload(dev, shape, seed)
+    acc = torch.zeros(shape, device=dev)
+    ref = torch.zeros(shape, device=dev)
+    n = q.numel()
+    # hop 0 writes acc without reading it
+    return Case(f"bucket_acc_hop_ {list(shape)} hop {hop}",
+                lambda: bucket_acc_hop_(acc, q, sc, hop),
+                lambda: bucket_acc_hop_plain_(ref, q, sc, hop),
+                (9.0 if hop else 5.0) * n + 4.0 * (n // shape[-1]),
+                lambda: ref.addcmul_(q, sc),
+                "Tensor.addcmul_ (no worker offset)")
+
+
+def b4_case(dev, shape, seed: int) -> Case:
+    _, q, sc = _payload(dev, shape, seed)
+    n = q.numel()
+    return Case(f"bucket_ring_sum {list(shape)}",
+                lambda: bucket_ring_sum(q, sc),
+                lambda: bucket_ring_sum_plain(q, sc),
+                n + 4.0 * (n // shape[-1]) + 4.0 * (n // shape[0]))
+
+
+def b5_case(dev, shape, seed: int) -> Case:
+    g = _gen(dev, seed)
+    x = torch.randn(shape, generator=g, device=dev)
+    u = torch.rand(shape, generator=g, device=dev)
+    return Case(f"squant_encode {list(shape)} in {TILE}",
+                lambda: squant_encode(x, u, s=1, block=TILE),
+                lambda: squant_encode_plain(x, u, s=1, block=TILE),
+                9.0 * x.numel() + 4.0 * _tiles(shape, TILE))
+
+
+def _encoded(dev, shape, seed: int, block):
+    g = _gen(dev, seed)
+    x = torch.randn(shape, generator=g, device=dev)
+    u = torch.rand(shape, generator=g, device=dev)
+    w = torch.randn(shape, generator=g, device=dev)
+    q, sc = squant_encode_plain(x, u, s=1, block=block)
+    return w, q, sc
+
+
+def b6_case(dev, shape, seed: int, block=TILE) -> Case:
+    _, q, sc = _encoded(dev, shape, seed, block)
+    qv, sv = _tile_views(shape, block)
+    return Case(f"squant_decode {list(shape)} in {tuple(block)}",
+                lambda: squant_decode(q, sc, block=block),
+                lambda: squant_decode_plain(q, sc, block=block),
+                5.0 * q.numel() + 4.0 * _tiles(shape, block),
+                lambda: torch.mul(q.view(qv), sc.view(sv)), "torch.mul")
+
+
+def b7_case(dev, shape, seed: int) -> Case:
+    w, q, sc = _encoded(dev, shape, seed, TILE)
+    qv, sv = _tile_views(shape, TILE)
+    return Case(f"dequant_apply {list(shape)} in {TILE}",
+                lambda: dequant_apply(w, q, sc, 0.01, block=TILE),
+                lambda: dequant_apply_plain(w, q, sc, 0.01, block=TILE),
+                9.0 * q.numel() + 4.0 * _tiles(shape, TILE),
+                lambda: torch.addcmul(w.view(qv), q.view(qv), sc.view(sv),
+                                      value=-0.01), "torch.addcmul")
+
+
+def _agrees(out, ref) -> Tuple[bool, float]:
+    """(agree, max abs difference of the float outputs): int8 levels off by
+    at most one on fewer than 1e-4 of the entries (the fused quantizers'
+    norm order), floats to rtol 1e-5 / atol 1e-6; bit for bit where the
+    kernels are (every other kernel gives the plain version's bits)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    ok, err = True, 0.0
+    for a, b in zip(outs, refs):
+        if a.dtype == torch.int8:
+            d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+            ok &= bool(d.max() <= 1) and float((d != 0).float().mean()) < 1e-4
+        else:
+            err = max(err, float((a.float() - b.float()).abs().max()))
+            ok &= torch.allclose(a.float(), b.float(), rtol=1e-5, atol=1e-6)
+    return ok, err
+
+
+def _one_kernel_us(fn: Callable, calls: int) -> Optional[float]:
+    """Device µs of one PyTorch call, where it runs as one kernel."""
+    us, per_call, names = device_trace(fn, calls)
+    return us if per_call == 1 and len(names) == 1 else None
+
+
+def measure(case: Case, ctx: Context) -> Tuple[float, str]:
+    """(row value, derived) of one case."""
+    bound_us = case.bytes / HBM_BW * 1e6
+    if not ctx.cuda:
+        plain = host_us(case.plain, ctx.device, reps=1 if ctx.fast else 5)
+        return plain, (f"device=cpu: plain version only, no kernel runs on "
+                       f"the CPU; plain_host_us={plain:.1f} "
+                       f"h100_bound_us={bound_us:.3f}")
+    ok, err = _agrees(case.kernel(), case.plain())
+    if not ok:
+        raise AssertionError(f"{case.name}: the kernel differs from its "
+                             f"plain version by {err}")
+    calls = 5 if ctx.fast else 25
+    us, per_call, names = device_trace(case.kernel, calls)
+    plain_us = device_trace(case.plain, calls)[0]
+    lib_us = (None if case.library is None
+              else _one_kernel_us(case.library, calls))
+    lib = (f" library_us={fmt(lib_us)} ({case.library_name})"
+           if case.library is not None else " library_us=none")
+    derived = (f"device_us={fmt(us)} (torch.profiler CUDA trace, "
+               f"{per_call:g} kernels a call {names}) bound_us="
+               f"{bound_us:.3f} (bytes at {HBM_BW / 1e12:.2f} TB/s) "
+               f"plain_us={fmt(plain_us)}{lib} max_abs_err={err:.3g}")
+    return (float("nan") if us is None else us), derived
+
+
+def _rows(cases: List[Tuple[str, Case]], ctx: Context) -> List[Row]:
+    out = []
+    for label, case in cases:
+        value, derived = measure(case, ctx)
+        out.append((f"kernel/{label}", value, f"{case.name}: {derived}"))
+    return out
+
+
+def kernel_suite(ctx: Context) -> List[Row]:
+    dev, sh = ctx.device, _shapes(ctx)
+    cases = [("b1_fused_memory_update", b1_case(dev, sh["b1"], 0)),
+             ("b2_ring_sum", b2_case(dev, sh["b2"], 1)),
+             ("worker_sum", wsum_case(dev, sh["wsum"], 2)),
+             ("b3_bucket_acc", b3_case(dev, sh["b3"], 3)),
+             ("b3_hop0", hop_case(dev, sh["hop"], 4, 0)),
+             ("b3_hop1", hop_case(dev, sh["hop"], 4, 1)),
+             ("b4_bucket_ring_sum", b4_case(dev, sh["b4"], 5)),
+             ("b5_squant_encode", b5_case(dev, sh["ops"], 6)),
+             ("b6_squant_decode", b6_case(dev, sh["ops"], 7)),
+             ("b6_squant_decode_narrow",
+              b6_case(dev, sh["ops"], 8, block=sh["narrow"])),
+             ("b7_dequant_apply", b7_case(dev, sh["ops"], 9))]
+    rows = _rows(cases, ctx)
+    rows += traffic_rows(ctx, sh["ops"])
+    return rows
+
+
+def traffic_rows(ctx: Context, shape) -> List[Row]:
+    """B1 on (256, 256) tiles against the pipeline it fuses (encode g - h,
+    decode, h + alpha * decoded), and the compression API's wire ratio."""
+    dev = ctx.device
+    g0 = _gen(dev, 10)
+    g, h = (torch.randn(shape, generator=g0, device=dev) for _ in range(2))
+    u = torch.rand(shape, generator=g0, device=dev)
+
+    def fused():
+        return fused_memory_update(g, h, u, 0.25, s=1, block=TILE)
+
+    def unfused():
+        q, sc = squant_encode(g - h, u, s=1, block=TILE)
+        return h + 0.25 * squant_decode(q, sc, block=TILE)
+
+    calls = 5 if ctx.fast else 25
+    if ctx.cuda:
+        f_us, u_us = (device_trace(fn, calls)[0] for fn in (fused, unfused))
+        where = "device_us from the torch.profiler CUDA trace"
+    else:
+        f_us, u_us = (host_us(fn, dev, reps=1) for fn in (fused, unfused))
+        where = "device=cpu: plain versions only, host clock"
+    c, _ = ops.encode(g, u, s=1)
+    ratio = 4.0 * g.numel() / c.wire_bytes
+    share = None if not (f_us and u_us) else f_us / u_us
+    return [
+        ("kernel/fused_memory", float("nan") if f_us is None else f_us,
+         f"{list(shape)} in {TILE}: {where}; hbm_passes fused=3r2w vs "
+         f"unfused=7r3w (1.67x less traffic)"),
+        ("kernel/unfused_memory", float("nan") if u_us is None else u_us,
+         f"encode(g - h) + decode + h update, the reference pipeline: "
+         f"{where}; fused/unfused={fmt(share)}"),
+        ("kernel/wire_ratio", 0.0, f"fp32_bytes/wire_bytes={ratio:.2f}")]
+
+
+def b1_probe(ctx: Context) -> List[Row]:
+    """B1 and B5 at the probe [16384, 4096] on (256, 256) tiles."""
+    dev, shape = ctx.device, _shapes(ctx)["probe"]
+    return _rows([("b1_probe", b1_case(dev, shape, 11, block=TILE)),
+                  ("b5_probe", b5_case(dev, shape, 12))], ctx)
+
+
+SUITES = [("kernel", kernel_suite), ("kernel/b1_probe", b1_probe)]

@@ -1,15 +1,19 @@
-"""Architecture registry and the 4 assigned input shapes (port of
-``repro/configs/__init__.py``; the ten config modules are copies of the
-reference's).
+"""Architecture registry, the 4 assigned input shapes and ``input_specs()``
+(port of ``repro/configs/__init__.py``; the ten config modules are copies
+of the reference's).
 
-The reference's ``input_specs`` (``jax.ShapeDtypeStruct`` stand-ins for
-the multi-pod dry-run) belongs with ``launch/dryrun.py`` and is not ported.
+``input_specs`` builds the step functions' data arguments as tensors on the
+``meta`` device, the port's counterpart of the reference's
+``jax.ShapeDtypeStruct`` stand-ins: shapes and dtypes, no allocation.  The
+one-card dry run (``launch/dryrun.py``) takes them.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Dict, Optional
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -58,3 +62,35 @@ def applicable(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
         return ("full-attention architecture: long_500k requires sub-quadratic "
                 "decode (skip noted in DESIGN.md)")
     return None
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, model=None) -> dict:
+    """Meta tensors of the step function's data arguments: the batch of a
+    train or prefill step; a decode step's token, position and the decode
+    cache of ``model.init_cache`` (on the meta device), with the encoder
+    output of the encdec family."""
+    meta = torch.device("meta")
+    b, s = shape.batch, shape.seq
+
+    def sd(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=meta)
+
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "vlm":
+            return {"tokens": sd((b, s - cfg.n_patches), torch.int32),
+                    "embeds": sd((b, cfg.n_patches, cfg.d_model),
+                                 torch.float32)}
+        if cfg.family == "encdec":
+            return {"tokens": sd((b, s), torch.int32),
+                    "frames": sd((b, cfg.n_frames, cfg.d_model),
+                                 torch.float32)}
+        return {"tokens": sd((b, s), torch.int32)}
+
+    # decode: one token against a seq-long cache
+    from repro_torch.models.model import build_model
+    mdl = model or build_model(cfg)
+    specs = {"token": sd((b,), torch.int32), "pos": sd((), torch.int32),
+             "cache": mdl.init_cache(b, s, device=meta)}
+    if cfg.family == "encdec":
+        specs["enc_out"] = sd((b, cfg.n_frames, cfg.d_model), cfg.cdtype)
+    return specs

@@ -13,6 +13,7 @@ tests carry the reference's arrays across with ``repro_torch.convert``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -20,6 +21,9 @@ import torch
 
 from repro_torch import default_device
 from repro_torch.core import artemis as art
+from repro_torch.core import codec as wire
+from repro_torch.core.noise import TorchNoise
+from repro_torch.kernels.ring_sum import worker_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,6 +186,109 @@ def run(problem: Problem, cfg: art.ArtemisConfig, gamma: float, iters: int,
         w_final=res.w_final[0, 0, 0], w_avg=res.w_avg[0, 0, 0],
         w_tail_avg=res.w_tail_avg[0, 0, 0],
         dist_to_opt=res.dists[0, 0, 0] if w_star is not None else None)
+
+
+def _seq_cumsum(rows: torch.Tensor) -> torch.Tensor:
+    """Cumulative sums along the last axis, one float32 add at a time
+    (torch's CPU ``cumsum`` accumulates float32 in float64)."""
+    acc, out = torch.zeros_like(rows[..., 0]), []
+    for j in range(rows.shape[-1]):
+        acc = acc + rows[..., j]
+        out.append(acc)
+    return torch.stack(out, -1)
+
+
+CUMSUM_BLOCK = 16     # XLA's CPU cumsum: sequential within 16, then up
+
+
+def block_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """The inclusive float32 cumulative sum of a vector in the order of
+    XLA's CPU ``jnp.cumsum``: a sequential sum within blocks of 16, the
+    block totals summed the same way (recursively), and each block's
+    exclusive prefix added to its own sums."""
+    n, b = x.shape[0], CUMSUM_BLOCK
+    if n <= b:
+        return _seq_cumsum(x)
+    m = -(-n // b)
+    rows = torch.zeros(m * b, dtype=x.dtype, device=x.device)
+    rows[:n] = x
+    within = _seq_cumsum(rows.reshape(m, b))
+    prefix = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device),
+                        block_cumsum(within[:, -1])[:-1]])
+    return (prefix[:, None] + within).reshape(-1)[:n]
+
+
+def run_percell(problem: Problem, cfg: art.ArtemisConfig, gamma: float,
+                iters: int, seed: int, batch: int = 1,
+                w0: Optional[torch.Tensor] = None, full_batch: bool = False,
+                w_star: Optional[torch.Tensor] = None,
+                gamma_decay: bool = False, backend: Optional[str] = None,
+                noise=None) -> RunResult:
+    """The legacy one-cell loop (the reference's ``run_percell``): a plain
+    Python loop over the rounds of one cell on the problem's device, the
+    full-batch loss and the distance read every round.  The sweep engine is
+    benchmarked and cross-checked against it (``bench/dist_bench.py``).
+
+    Each round draws from ``noise`` (default: ``TorchNoise`` over
+    ``[seed]``, the draws ``run`` sees), steps ``w -= gamma * omega`` and
+    meters the bits as the reference does: every active worker pays its
+    uplink message plus the catch-up of the rounds it missed since its last
+    participation (``m1``, ``m2``, ``catchup_window``, ``last_part``),
+    capped at one full model (Remark 3).  The round's bits are rounded once
+    (uplink + catch-up, as XLA's FMA) and summed over the rounds at the end
+    in the order of the reference's cumulative sum (``block_cumsum``).
+    A config with faults is refused: the legacy loop has none of the
+    sweep's fault model.
+    """
+    from repro_torch.core.sweep import _fma   # sweep imports this module
+    if cfg.faults is not None:
+        raise ValueError("run_percell runs no faults; use run_sweep")
+    dev = problem.device
+    n, d = problem.n_workers, problem.dim
+    c_up, c_dwn = cfg.codecs()
+    m1 = float(wire.FP_BITS * d)                 # full-model message
+    m2 = max(c_dwn.bits(d), 1.0)                 # compressed-update message
+    catchup_window = max(int(m1 // m2), 1)
+    up_bits = float(np.float32(c_up.bits(d)))   # the ref's f32
+    if noise is None:
+        noise = TorchNoise([seed], n, d, None if full_batch else batch,
+                           problem.X.shape[1], dev)
+    w = (torch.zeros(1, d, device=dev) if w0 is None else
+         torch.as_tensor(w0, dtype=torch.float32, device=dev).reshape(1, d))
+    ws = (torch.zeros(d, device=dev) if w_star is None else
+          torch.as_tensor(w_star, dtype=torch.float32, device=dev))
+    st = art.init_state(cfg, (1,), device=dev)
+    last_part = torch.full((1, n), -1, dtype=torch.int32, device=dev)
+    wsum, wtail = torch.zeros_like(w), torch.zeros_like(w)
+    losses, bits, dists = [], [], []
+    for k in range(iters):
+        nz = noise.round(k)
+        grads = (problem.full_grad(w) if full_batch
+                 else problem.worker_grad(w, nz.idx))
+        active = (nz.u_act < cfg.p).to(torch.float32)
+        omega, st, _ = art.artemis_round(cfg, st, grads, nz.u_up, nz.u_dwn,
+                                         active, backend=backend)
+        g = gamma / math.sqrt(k + 1.0) if gamma_decay else gamma
+        w = w - g * omega
+        # catch-up bit metering (Remark 3)
+        missed = k - last_part              # rounds since last download
+        catch = torch.where(missed > catchup_window, m1,
+                            missed.to(torch.float32) * m2)
+        catch = worker_sum((active * catch)[..., None])[..., 0]
+        last_part = torch.where(active > 0, k, last_part)
+        bits.append(_fma(active.sum(-1), up_bits, catch))
+        losses.append(problem.global_loss(w))
+        wsum = wsum + w
+        wtail = wtail + (1.0 if k >= iters // 2 else 0.0) * w
+        diff = w - ws
+        dists.append(torch.sqrt((diff * diff).sum(-1)))
+    bits = block_cumsum(torch.cat(bits))
+    return RunResult(
+        losses=torch.cat(losses).cpu().numpy(), bits=bits.cpu().numpy(),
+        w_final=w[0].cpu().numpy(), w_avg=(wsum[0] / iters).cpu().numpy(),
+        w_tail_avg=(wtail[0] / max(iters - iters // 2, 1)).cpu().numpy(),
+        dist_to_opt=(torch.cat(dists).cpu().numpy()
+                     if w_star is not None else None))
 
 
 def gamma_max(problem: Problem, cfg: art.ArtemisConfig) -> float:

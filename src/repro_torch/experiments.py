@@ -38,7 +38,7 @@ from repro_torch.optim import sgd
 N, D = 20, 20
 
 
-def _timed_sweep(prob, cfgs, gammas, seeds, iters, **kw):
+def timed_sweep(prob, cfgs, gammas, seeds, iters, **kw):
     """run_sweep plus its wall time in microseconds per round per cell (the
     host clock around work that ends in a copy to the host)."""
     t0 = time.perf_counter()
@@ -59,8 +59,8 @@ def exp1_saturation(device=None) -> Dict:
     gamma = 0.8 * fed.gamma_max(prob, art.variant_config("artemis", D, N))
     variants = ["sgd", "qsgd", "diana", "biqsgd", "artemis"]
     cfgs = [art.variant_config(v, D, N) for v in variants]
-    res, us = _timed_sweep(prob, cfgs, [gamma], [0], 3000, batch=1,
-                           eval_every=10)
+    res, us = timed_sweep(prob, cfgs, [gamma], [0], 3000, batch=1,
+                          eval_every=10)
     sat = {v: float(np.mean(res.losses[vi, 0, 0, -30:])) - opt
            for vi, v in enumerate(variants)}
     return {"saturation": sat, "us_per_round_cell": us}
@@ -75,7 +75,7 @@ def exp2_linear(device=None) -> Dict:
     variants = ["sgd", "qsgd", "biqsgd", "artemis"]
     cfgs = [art.variant_config(v, D, N) for v in variants]
     gs = [fed.gamma_max(prob, c) for c in cfgs]
-    res, us = _timed_sweep(prob, cfgs, gs, [0], 600, batch=8, eval_every=100)
+    res, us = timed_sweep(prob, cfgs, gs, [0], 600, batch=8, eval_every=100)
     return {"loss": {v: float(res.losses[vi, vi, 0, -1])
                      for vi, v in enumerate(variants)},
             "first_loss": {v: float(res.losses[vi, vi, 0, 0])
@@ -93,8 +93,8 @@ def exp3_memory(device=None) -> Dict:
     gamma = 1.0 / (2 * prob.smoothness())
     variants = ["biqsgd", "artemis"]
     cfgs = [art.variant_config(v, 2, N) for v in variants]
-    res, us = _timed_sweep(prob, cfgs, [gamma], [0], 800, full_batch=True,
-                           eval_every=100)
+    res, us = timed_sweep(prob, cfgs, [gamma], [0], 800, full_batch=True,
+                          eval_every=100)
     return {"excess": {v: float(res.losses[vi, 0, 0, -1]) - opt
                        for vi, v in enumerate(variants)},
             "us_per_round_cell": us}
@@ -110,21 +110,26 @@ def exp4_pp(device=None) -> Dict:
     modes = ["pp1", "pp2"]
     cfgs = [art.variant_config("artemis", 2, N, p=0.5, pp_mode=m)
             for m in modes]
-    res, us = _timed_sweep(prob, cfgs, [gamma], [0], 800, full_batch=True,
-                           eval_every=10)
+    res, us = timed_sweep(prob, cfgs, [gamma], [0], 800, full_batch=True,
+                          eval_every=10)
     return {"excess": {m: float(np.mean(res.losses[mi, 0, 0, -5:])) - opt
                        for mi, m in enumerate(modes)},
             "us_per_round_cell": us}
 
 
+FIG4_VARIANTS = ("sgd", "qsgd", "diana", "biqsgd", "artemis")
+
+
 def fig4_bits(device=None, gamma_mults: Sequence[float] = (1.0,),
               seeds: Sequence[int] = (0,),
               fault_config: Optional[faults.FaultConfig] = None,
-              telemetry: bool = False) -> Dict:
+              telemetry: bool = False,
+              variants: Sequence[str] = FIG4_VARIANTS,
+              iters: int = 600) -> Dict:
     """Fig 4: loss against communicated bits on the clustered non-i.i.d.
-    problem (N=20, n_per=300, d=40, batch 16, 600 rounds, eval every 5).
-    ``gamma_mults`` scale the reference's step 0.5/L; the grid is the
-    5 variants x gammas x seeds, every variant under ``fault_config``, with
+    problem (N=20, n_per=300, d=40, batch 16, ``iters`` rounds, eval every
+    5).  ``gamma_mults`` scale the reference's step 0.5/L; the grid is the
+    ``variants`` x gammas x seeds, every variant under ``fault_config``, with
     the sweep's telemetry when ``telemetry``.  Returns, per variant, the
     bits the first cell (gamma 0, seed 0) spent to halve the excess loss
     (inf if never), the grid's rollbacks, and the ``SweepResult``
@@ -136,12 +141,11 @@ def fig4_bits(device=None, gamma_mults: Sequence[float] = (1.0,),
     target = 0.5 * (float(prob.global_loss(torch.zeros(40, device=dev)))
                     - opt)
     gamma = 0.5 / prob.smoothness()
-    variants = ["sgd", "qsgd", "diana", "biqsgd", "artemis"]
     cfgs = [dataclasses.replace(art.variant_config(v, 40, N),
                                 faults=fault_config) for v in variants]
-    res, us = _timed_sweep(prob, cfgs, [gamma * m for m in gamma_mults],
-                           list(seeds), 600, batch=16, eval_every=5,
-                           telemetry=telemetry)
+    res, us = timed_sweep(prob, cfgs, [gamma * m for m in gamma_mults],
+                          list(seeds), iters, batch=16, eval_every=5,
+                          telemetry=telemetry)
     out = {}
     for vi, v in enumerate(variants):
         exc = res.losses[vi, 0, 0] - opt
@@ -173,8 +177,8 @@ def exp5_faults(device=None) -> Dict:
             bitflip_rate=0.005, scrub=True, sentinel=20.0, backoff=0.8),
     }
     cfgs = [dataclasses.replace(base, faults=fc) for fc in grid.values()]
-    res, us = _timed_sweep(prob, cfgs, [gamma], [0], 1500, batch=1,
-                           eval_every=10)
+    res, us = timed_sweep(prob, cfgs, [gamma], [0], 1500, batch=1,
+                          eval_every=10)
     return {"final_loss": {name: float(res.losses[i, 0, 0, -1])
                            for i, name in enumerate(grid)},
             "rollbacks": {name: int(res.rollbacks[i, 0, 0])
@@ -223,57 +227,64 @@ def fault_matrix(device=None) -> Dict:
                          float(flip.losses[0, 0, 0, -1])]}
 
 
-def table3_gamma_max(device=None) -> Dict:
+def table3_gamma_max(device=None,
+                     variants: Sequence[str] = ("sgd", "qsgd", "artemis"),
+                     iters: int = 400, n_mults: int = 8) -> Dict:
     """Table 3: the theory's gamma_max is sufficient for convergence.  On
-    noiseless i.i.d. LSR, each of sgd, qsgd and artemis runs 400 rounds at
-    gamma_max times 1, 2, ..., 128 (one sweep per variant over the gamma
-    axis); a step size converges when its final loss is finite and below
-    the loss at w0.  Returns, per variant, whether gamma_max
-    converges and the empirical edge over it (the largest multiplier
+    noiseless i.i.d. LSR, each variant (sgd, qsgd and artemis) runs
+    ``iters`` rounds at gamma_max times 1, 2, ..., 2**(n_mults - 1) (one
+    sweep per variant over the gamma axis); a step size converges when
+    its final loss is finite and below the loss at w0.  Returns, per
+    variant, whether gamma_max converges, its µs per round per cell and
+    the empirical edge over it (the largest multiplier
     before the first failure, halved as the reference reports it)."""
     dev = default_device(device)
     prob, _ = fed.make_lsr_problem(123, n_workers=N, n_per=200, d=D,
                                    noise=0.0, device=dev)
     f0 = float(prob.global_loss(torch.zeros(D, device=dev)))
-    mults = 2.0 ** np.arange(8)
+    mults = 2.0 ** np.arange(n_mults)
     out, us_all = {}, []
-    for variant in ("sgd", "qsgd", "artemis"):
+    for variant in variants:
         cfg = art.variant_config(variant, D, N)
         g = fed.gamma_max(prob, cfg)
-        res, us = _timed_sweep(prob, [cfg], g * mults, [0], 400, batch=8,
-                               eval_every=100)
+        res, us = timed_sweep(prob, [cfg], g * mults, [0], iters, batch=8,
+                              eval_every=iters // 4)
         last = res.losses[0, :, 0, -1]
         ok = np.isfinite(last) & (last < f0)
         edge = mults[np.argmin(ok)] / 2 if (~ok).any() else mults[-1]
         out[variant] = {"gamma_max": g, "converges": bool(ok[0]),
-                        "empirical_over_theory": float(edge)}
+                        "empirical_over_theory": float(edge),
+                        "us_per_round_cell": us}
         us_all.append(us)
     return {"variants": out, "us_per_round_cell": float(np.mean(us_all))}
 
 
-def thm3_variance_lower_bound(device=None) -> Dict:
+def thm3_variance_lower_bound(device=None,
+                              qs: Sequence[float] = (1.0, 0.5, 0.25),
+                              iters: int = 800, tail: int = 10) -> Dict:
     """Thm 3: the asymptotic variance grows with omega_up and omega_dwn:
-    sparsification up and down at q in {1, 0.5, 0.25} (omega = 1/q - 1) on
-    noisy i.i.d. LSR at gamma = 1/(6L), 800 rounds, saturates higher as q
-    falls.
-    Returns each q's saturation (mean excess loss over the last 10 eval
-    points)."""
+    sparsification up and down at each q of ``qs`` (omega = 1/q - 1) on
+    noisy i.i.d. LSR at gamma = 1/(6L), ``iters`` rounds, saturates higher
+    as q falls.
+    Returns each q's saturation (mean excess loss over the last ``tail``
+    eval points) and, with q = 1 and 0.25 among ``qs``, whether it is
+    monotone."""
     dev = default_device(device)
     prob, _ = fed.make_lsr_problem(123, n_workers=N, n_per=200, d=D,
                                    noise=0.4, device=dev)
     opt = float(prob.global_loss(prob.solve_opt()))
     gamma = 1.0 / (6 * prob.smoothness())
-    qs = [1.0, 0.5, 0.25]
     cfgs = [art.ArtemisConfig(dim=D, n_workers=N, up="sparsify",
                               dwn="sparsify", up_kwargs={"q": q},
                               dwn_kwargs={"q": q},
                               alpha=0.0 if q == 1.0 else None)
             for q in qs]
-    res, us = _timed_sweep(prob, cfgs, [gamma], [0], 800, batch=1,
-                           eval_every=10)
-    sat = {q: float(np.mean(res.losses[qi, 0, 0, -10:])) - opt
+    res, us = timed_sweep(prob, cfgs, [gamma], [0], iters, batch=1,
+                          eval_every=10)
+    sat = {q: float(np.mean(res.losses[qi, 0, 0, -tail:])) - opt
            for qi, q in enumerate(qs)}
-    return {"saturation": sat, "monotone": sat[0.25] > sat[1.0],
+    monotone = (sat[0.25] > sat[1.0]) if {0.25, 1.0} <= set(sat) else None
+    return {"saturation": sat, "monotone": monotone,
             "us_per_round_cell": us}
 
 

@@ -1,8 +1,8 @@
-"""Wire models of the mesh's compressed collectives (port of the numpy wire
-models of ``repro/launch/roofline.py``: ``_codec_split``,
-``_default_bucket_split``, ``bucketed_wire_model`` and
-``leaf_wire_model``).  The reference's HLO parsers have no meaning here and
-are not copied.
+"""Wire models of the mesh's compressed collectives and the dry run's
+roofline (port of ``repro/launch/roofline.py``: ``_codec_split``,
+``_default_bucket_split``, ``bucketed_wire_model``, ``leaf_wire_model``,
+``Roofline``, ``active_params``, ``model_flops`` and ``markdown_table``).
+The reference's HLO parsers have no meaning in torch and are not copied.
 
 The models count the bytes one worker puts on the inter-worker wire per
 step, ``wire_bytes_per_step`` (hops times the payload, split by dtype from
@@ -12,9 +12,14 @@ from the rates passed in; the defaults are an H100 SXM's (NVIDIA's data
 sheet): 3.35 TB/s of device memory and 450 GB/s each way over NVLink.
 ``COLL_LAT``, a collective's fixed cost, is an assumed figure, not a
 measurement.
+
+``Roofline`` turns a dry run's counts (``launch/dryrun.py``) into the
+three terms against one H100: compute (FLOPs at the dense bf16 peak, the
+models' compute dtype), memory (bytes at ``HBM_BW``) and the wire.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -22,6 +27,9 @@ import numpy as np
 HBM_BW = 3.35e12          # bytes/s, H100 SXM device memory
 LINK_BW = 450e9           # bytes/s, H100 NVLink, one direction
 COLL_LAT = 2e-6           # s per collective (assumed, not measured)
+# dense bf16 tensor-core peak of one H100 SXM (NVIDIA's H100 data sheet,
+# without sparsity; at the full 700 W power limit)
+PEAK_BF16_FLOPS = 989e12
 
 
 def _codec_split(codec, shape) -> Dict[str, float]:
@@ -107,3 +115,73 @@ def leaf_wire_model(leaf_shapes, *, n_workers: int, codec=None,
         "step_comm_pipelined_s": comm + deq,     # nothing overlaps
         "exposed_comm_s": comm,
     }
+
+
+@dataclasses.dataclass
+class Roofline:
+    """One dry-run combo against one H100: ``compute_s`` = FLOPs at
+    ``PEAK_BF16_FLOPS``, ``memory_s`` = bytes accessed at ``HBM_BW``,
+    ``wire_s`` the ring's time from the wire model; ``dominant`` the largest
+    term, ``useful_ratio`` = MODEL_FLOPS / counted FLOPs."""
+    arch: str
+    shape: str
+    kind: str                       # train | prefill | decode
+    flops: float
+    bytes_accessed: float
+    wire_s: float
+    model_flops: float
+    compute_s: float = 0.0
+    memory_s: float = 0.0
+    dominant: str = ""
+    useful_ratio: float = 0.0
+
+    def finalize(self) -> "Roofline":
+        self.compute_s = self.flops / PEAK_BF16_FLOPS
+        self.memory_s = self.bytes_accessed / HBM_BW
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "wire": self.wire_s}
+        self.dominant = max(terms, key=terms.get)
+        self.useful_ratio = self.model_flops / max(self.flops, 1.0)
+        return self
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def active_params(cfg, params) -> float:
+    """Active parameter count of a flat params dict: the MoE's experts
+    scaled by top_k / n_experts (the router counts whole)."""
+    total, expert_total = 0.0, 0.0
+    for key, leaf in params.items():
+        n = float(leaf.numel())
+        if "moe" in key and "router" not in key:
+            expert_total += n
+        else:
+            total += n
+    if cfg.n_experts:
+        total += expert_total * cfg.top_k / cfg.n_experts
+    return total
+
+
+def model_flops(cfg, params, kind: str, batch: int, seq: int) -> float:
+    """MODEL_FLOPS: 6 N_active D a train step, 2 N_active D a prefill, 2
+    N_active per token a decode step."""
+    n_active = active_params(cfg, params)
+    if kind == "train":
+        return 6.0 * n_active * batch * seq
+    if kind == "prefill":
+        return 2.0 * n_active * batch * seq
+    return 2.0 * n_active * batch
+
+
+def markdown_table(rows) -> str:
+    hdr = ("| arch | shape | dist | W | kind | compute (s) | memory (s) | "
+           "wire (s) | dominant | MODEL/counted flops | peak (GB) |\n"
+           "|---|---|---|---|---|---|---|---|---|---|---|\n")
+    lines = [
+        f"| {r['arch']} | {r['shape']} | {r.get('dist', 'none')} | "
+        f"{r.get('workers', 1)} | {r['kind']} | {r['compute_s']:.3e} | "
+        f"{r['memory_s']:.3e} | {r['wire_s']:.3e} | **{r['dominant']}** | "
+        f"{r['useful_ratio']:.2f} | {r['peak_bytes'] / 1e9:.2f} |"
+        for r in rows]
+    return hdr + "\n".join(lines)

@@ -778,3 +778,80 @@ def test_lm_train_cli_on_card(cuda_device, tmp_path):
             for d in ("a", "b"))
     for k in a.files:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+class _FixedNoise:
+    """The same draws on any device: numpy's, moved to ``device``."""
+
+    def __init__(self, iters, n, d, batch, n_per, device):
+        import numpy as np
+        from repro_torch.core import noise
+        rng = np.random.default_rng(0)
+        self.rounds = [noise.RoundNoise(
+            idx=torch.from_numpy(rng.integers(0, n_per, (1, n, batch))).to(
+                device),
+            u_act=torch.from_numpy(rng.random((1, n), np.float32)).to(device),
+            u_up=torch.from_numpy(rng.random((1, n, d), np.float32)).to(
+                device),
+            u_dwn=torch.from_numpy(rng.random((1, d), np.float32)).to(device))
+            for _ in range(iters)]
+
+    def round(self, k, **_):
+        return self.rounds[k]
+
+
+@pytest.mark.cuda
+def test_run_percell_on_card(cuda_device):
+    """The legacy loop on the card through the fused kernels against the
+    same loop on the CPU with the same draws: bits exactly (counts of who
+    was active), losses to rtol 1e-4 (the fused uplink's norm order)."""
+    import numpy as np
+    from repro_torch.core import federated as tfed
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        prob, w_star = tfed.make_lsr_problem(4, n_workers=8, n_per=50, d=16,
+                                             device="cpu")
+        prob = tfed.Problem(prob.X.to(dev), prob.Y.to(dev), prob.kind)
+        cfg = tart.variant_config("artemis", 16, 8, p=0.6)
+        out[dev.type] = tfed.run_percell(
+            prob, cfg, 0.02, 20, 0, batch=4, w_star=w_star.to(dev),
+            backend="cuda", noise=_FixedNoise(20, 8, 16, 4, 50, dev))
+    np.testing.assert_array_equal(out["cuda"].bits, out["cpu"].bits)
+    np.testing.assert_allclose(out["cuda"].losses, out["cpu"].losses,
+                               rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_kernel_bench_reads_every_kernel_from_the_trace(cuda_device):
+    from repro_torch.bench import Context, kernel_bench
+    rows = kernel_bench.kernel_suite(Context(True, cuda_device, "build"))
+    kernels = [r for r in rows if r[0].startswith("kernel/b")
+               or r[0] == "kernel/worker_sum"]
+    assert len(kernels) == 11
+    for name, us, derived in kernels:
+        assert us > 0 and "device_us=" in derived, (name, derived)
+        assert "not_measured" not in derived.split("bound_us")[0], derived
+
+
+@pytest.mark.cuda
+def test_analysis_audits_on_card(cuda_device):
+    """The launch audit and the wire checks on the card, and every
+    host-sync finding suppressed by the port's baseline."""
+    from repro_torch.analysis import __main__ as cli
+    from repro_torch.analysis import findings, launch_audit
+    from repro_torch.analysis import wire_checks as wc
+    assert launch_audit.audit_entry_points(cuda_device) == []
+    assert wc.audit_codec_wires(cuda_device) == []
+    assert wc.audit_donation(cuda_device) == []
+    syncs = wc.audit_host_sync(cuda_device)
+    findings.apply_baseline(syncs, findings.load_baseline(cli.BASELINE))
+    assert not findings.active(syncs), [f.format() for f in syncs]
+
+
+@pytest.mark.cuda
+def test_dry_run_moves_no_device_memory(cuda_device):
+    from repro_torch.launch import dryrun
+    before = torch.cuda.memory_allocated(cuda_device)
+    rec = dryrun.lower_one("starcoder2-7b", "decode_32k", batch=4, seq=64)
+    assert rec["status"] == "ok" and rec["peak_bytes"] > rec["param_bytes"]
+    assert torch.cuda.memory_allocated(cuda_device) == before
