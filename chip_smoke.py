@@ -144,7 +144,10 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
    capacity, as the reference's ``test_decode_matches_prefill`` takes it)
    in bf16; for olmoe, whose bf16 routing flips, at f32 compute, and in
    bf16 with the decode's experts pinned to prefill's
-   (``_moe_decode_checks``);
+   (``_moe_decode_checks``), and its bf16 flips counted again with
+   cuBLAS's bf16 reduction of partial sums forbidden
+   (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
+   True by default: ROADMAP §C, C5);
 26. lm train: ``lm-100m`` (examples/train_lm.py --full-100m, 116.4 M
    parameters) over the default bucketed ``DistConfig``, artemis, s = 1,
    adam(3e-3), W = 8, batch 16, seq 256: 2 warm-up steps, then
@@ -165,14 +168,27 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
    from the CUDA trace;
 29. analysis: ``python -m repro_torch.analysis --ci`` in a subprocess on
    the card (the lint, the launch audit, the wire checks and host-sync),
-   exit 0, its host-sync findings listed (each in the port's baseline).
+   exit 0, its host-sync findings listed (each in the port's baseline);
+30. lm remat (after phase 26): phase 26's run with ``remat=True`` (the
+   example sets False): µs per step, peak memory and the dry run's
+   estimate of it beside phase 26's, the losses within 0.05 of phase
+   26's, W bucket_acc launches a step; then one full-width
+   falcon-mamba-7b layer (depth cut to 1) at batch 1 x 2048, its plain
+   sgd step with remat off and on: ms per step, peak memory, the dry run's
+   estimate (ROADMAP §B note 7);
+31. pg train (after phase 30): ``launch.train.main --ranks 4`` on
+   lm-100m at full width (4 gloo ranks on the card, the parent's cached
+   device memory freed first), 3 steps with local_steps = 2: the losses
+   finite and falling, and bucket_acc launched W times a rank a
+   communicating step (the ranks' counts, summed in the event log's
+   ``run_end``).
 
 The simulator's path (phases 4 and 5), the fault path (phases 13 to 15),
 the telemetry grid (17), the mesh's (phases 7 and 8), the leaf wire's
 (18, 19), the mesh's fault path (20, 21) and the compression API's (phase
-10) and the LM paths (24 to 26) are each driven with every launch count
-set to 0 just before and read just after; the pg ring's ranks count their
-own.  The kernels line adds the simulator's, the fault path's and the
+10) and the LM paths (24 to 26, 30) are each driven with every launch count
+set to 0 just before and read just after; the pg ring's ranks (22, 31)
+count their own.  The kernels line adds the simulator's, the fault path's and the
 telemetry grid's launches of B1, B2 and the worker sum, and every mesh
 and LM path's of B3 and B4.
 
@@ -278,6 +294,11 @@ LM_SERVE_ARCHS = ("starcoder2-7b", "olmoe-1b-7b")
 LM_SERVE_B, LM_SERVE_PROMPT, LM_SERVE_GEN = 4, 32, 32
 LM_TRAIN_W, LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 16, 256
 LM_TRAIN_STEPS = 10
+# one full-width falcon-mamba-7b layer with remat on and off (ROADMAP §B
+# note 7): a batch whose step fits without remat
+REMAT_FALCON_B, REMAT_FALCON_SEQ = 1, 2048
+# the train CLI over ranks: lm-100m, W = 4 gloo ranks on the card
+PG_TRAIN_RANKS, PG_TRAIN_STEPS, PG_TRAIN_LOCAL = 4, 3, 2
 
 
 class SmokeFailure(Exception):
@@ -536,7 +557,9 @@ def library_ms(fn):
     return device_ms(fn) or call_ms(fn)
 
 
-def acc_case(dev, shape, seed):
+def acc_case(dev, shape, seed, timed=True):
+    """B3 out of place over [rows, C].  Untimed, it only holds the kernel
+    to its plain version."""
     import torch
     from repro_torch.kernels.bucket_ring import bucket_acc, bucket_acc_plain
     gen, q, scales = _payload(dev, shape, seed)
@@ -550,6 +573,8 @@ def acc_case(dev, shape, seed):
     err = float((out - ref).abs().max())
     check(torch.equal(out, ref), f"bucket_acc {list(shape)}: differs from "
                                  f"its plain version by {err}")
+    if not timed:
+        return dict(shape=list(shape), max_abs_err=err)
     times = timings(lambda: bucket_acc(acc, q, scales),
                     lambda: bucket_acc_plain(acc, q, scales))
     n_el, rows = q.numel(), q.numel() // shape[-1]
@@ -640,8 +665,12 @@ def bsum_case(dev, shape, seed, timed=True):
 
 def mesh_kernel_phase(dev, lm_stacks):
     """B3 and B4 on the mesh's shapes and on the LM paths' stacks
-    (``lm_ring_stacks``): lm-100m's timed, the reduced archs' checked."""
+    (``lm_ring_stacks``): lm-100m's timed, the reduced archs' checked, and
+    B3 out of place at lm-100m's [B * R, C], as each rank of the pg train
+    phase folds its ring (``ProcessRing._ring``)."""
     acc = [acc_case(dev, sh, 20 + i) for i, sh in enumerate(ACC_CASES)]
+    b, r, c = lm_stacks["train"][1:]
+    acc.append(acc_case(dev, (b * r, c), 29, timed=False))
     acc += [hop_case(dev, sh, hop, 25 + i) for i, sh in enumerate(HOP_CASES)
             for hop in (0, 1)]
     acc += [hop_case(dev, lm_stacks["train"], hop, 28) for hop in (0, 1)]
@@ -2301,7 +2330,10 @@ def lm_serve_case(dev, arch):
                                  (pre, prefilled.calls))
     bf16 = (f"; bf16: {chk['flips']} of {chk['choices']} expert choices "
             f"of the decode chain differ from prefill's (f32: "
-            f"{chk['flips_f32']}), in rows {chk['flipped_rows']}; unpinned "
+            f"{chk['flips_f32']}; C5: bf16 reduction allowed "
+            f"{chk['bf16_reduction_allowed']}, with it forbidden "
+            f"{chk['flips_bf16_reduction_off']}), in rows "
+            f"{chk['flipped_rows']}; unpinned "
             f"max |diff| {chk['free_max_abs']:.4g} (argmax agree "
             f"{chk['free_argmax_agree']:.3f}), rows without a flip "
             f"{chk['unflipped_max_abs']} (bf16 bar, ok "
@@ -2449,6 +2481,19 @@ def _moe_decode_checks(cfg, pcfg, model, params, toks, decoded, prefilled):
         lg_pre32 = f32_pre.prefill_logits(params, {"tokens": toks})
     flips32 = _flips(cfg, free32.calls, pre32.calls, b)[0]
     chk = _decode_against_prefill(lg32, lg_pre32, f32=True)
+    # C5: the same bf16 chain and forward with cuBLAS's bf16 reduction of
+    # partial sums forbidden (PyTorch allows it by default)
+    mm = torch.backends.cuda.matmul
+    allowed = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        dec_off, pre_off = _Routing(cfg), _Routing(cfg)
+        _decode_chain(model, params, toks, dec_off)
+        with pre_off, torch.inference_mode():
+            build_model(pcfg).prefill_logits(params, {"tokens": toks})
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = allowed
+    flips_off = _flips(cfg, dec_off.calls, pre_off.calls, b)[0]
     pin_err = float((lg_pin - pre).abs().max())
     whole = _decode_against_prefill(lg_free, pre)
     keep = ~flipped
@@ -2458,6 +2503,7 @@ def _moe_decode_checks(cfg, pcfg, model, params, toks, decoded, prefilled):
         ok=chk["ok"] and pin_err <= rounding
         and (rows is None or rows["ok"]),
         flips=flips, flips_f32=flips32, choices=choices,
+        bf16_reduction_allowed=allowed, flips_bf16_reduction_off=flips_off,
         flipped_rows=flipped.nonzero().flatten().tolist(),
         free_max_abs=whole["max_abs"],
         free_argmax_agree=whole["argmax_agree"],
@@ -2473,8 +2519,10 @@ def lm_serve_phase(dev):
     return {arch: lm_serve_case(dev, arch) for arch in LM_SERVE_ARCHS}
 
 
-def lm_train_phase(dev):
-    """lm-100m over the default bucketed wire, artemis, W = 8."""
+def _lm_100m_run(dev, remat):
+    """lm-100m over the default bucketed wire, artemis, W = 8, with or
+    without remat: 2 warm-up steps, then LM_TRAIN_STEPS profiled."""
+    import dataclasses
     import torch
     from repro_torch import experiments as ex
     from repro_torch.core import dist
@@ -2483,7 +2531,9 @@ def lm_train_phase(dev):
     from repro_torch.launch import roofline
     from repro_torch.models.model import build_model
     from repro_torch.optim import adam
-    cfg, steps = ex.lm_config(full_100m=True), LM_TRAIN_STEPS
+    cfg = dataclasses.replace(ex.lm_config(full_100m=True), remat=remat)
+    steps = LM_TRAIN_STEPS
+    name = f"lm train {cfg.name}{' remat' if remat else ''}"
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     n_params = sum(p.numel() for p in params.values())
@@ -2515,23 +2565,26 @@ def lm_train_phase(dev):
     peak = torch.cuda.max_memory_allocated(dev)
     losses = [float(x) for x in losses]
     launched = bucket_acc.launches - a0
-    check(all(map(math.isfinite, losses)), f"lm train: losses {losses}")
+    check(all(map(math.isfinite, losses)), f"{name}: losses {losses}")
     check(launched == LM_TRAIN_W * steps,
-          f"lm train: bucket_acc launched {launched}, expected "
+          f"{name}: bucket_acc launched {launched}, expected "
           f"{LM_TRAIN_W * steps} (W a step)")
     drop = losses[0] - losses[-1]
-    check(drop > 0.5, f"lm train: the loss fell {drop:.4f} nats over "
+    check(drop > 0.5, f"{name}: the loss fell {drop:.4f} nats over "
                       f"{len(losses)} steps (the example asks > 0.5)")
     wire = roofline.bucketed_wire_model(
         n_workers=LM_TRAIN_W, n_buckets=layout.n_buckets, rows=layout.rows,
         row=layout.row)["wire_bytes_per_step"]
     res = {"params": n_params, "layout": list(layout.shape),
+           # on the host, for the remat phase's comparison
+           "final_params": {k: v.detach().cpu()
+                            for k, v in state.params.items()},
            "us_per_step": wall_us / steps, "busy_share": busy,
            "device_us_per_step": dev_us / steps,
            "device_ops_per_step": n_ops / steps, "peak_bytes": peak,
            "wire_bytes_per_worker_per_step": wire, "losses": losses,
            "drop": drop, "launches": launched, "top": top}
-    log(f"lm train {cfg.name}: {n_params} parameters, layout "
+    log(f"{name}: {n_params} parameters, layout "
         f"{list(layout.shape)}, W = {LM_TRAIN_W}, batch {LM_TRAIN_BATCH} x "
         f"{LM_TRAIN_SEQ}, {steps} steps after 2: {wall_us / steps:.1f} us "
         f"per step, device busy {dev_us / steps:.1f} us per step, share "
@@ -2541,6 +2594,154 @@ def lm_train_phase(dev):
         f"{losses[-1]:.4f} (drop {drop:.4f})")
     log_top(top)
     return res
+
+
+def lm_train_phase(dev):
+    """lm-100m over the default bucketed wire, artemis, W = 8 (the
+    example's remat=False)."""
+    return _lm_100m_run(dev, remat=False)
+
+
+def _falcon_layer(dev, remat):
+    """One full-width falcon-mamba-7b layer's plain train step (sgd) at
+    batch REMAT_FALCON_B x REMAT_FALCON_SEQ: ms per step (median of 3 after
+    one), peak memory, and the dry run's estimate of the peak."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import dist
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import sgd
+    over = {"n_layers": 1, "remat": remat}
+    cfg = dataclasses.replace(configs.get_config("falcon-mamba-7b"), **over)
+    est = dryrun.lower_one("falcon-mamba-7b", "train_4k", "none",
+                           batch=REMAT_FALCON_B, seq=REMAT_FALCON_SEQ,
+                           cfg_overrides=over)
+    check(est["status"] == "ok", f"remat falcon: dry run {est}")
+    model = build_model(cfg)
+    init_state, step_fn = dist.make_train_step(model, sgd(1e-3), None,
+                                               device=dev)
+    state = init_state(model.init(torch.Generator(device=dev).manual_seed(0)))
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (REMAT_FALCON_B, REMAT_FALCON_SEQ), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1),
+        dtype=torch.int32)}
+    state, (loss, _) = step_fn(state, batch)              # warm-up
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], [float(loss)]
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, (loss, _) = step_fn(state, batch)
+        losses.append(float(loss))              # the step's end, on the host
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(all(map(math.isfinite, losses)),
+          f"remat falcon (remat {remat}): losses {losses}")
+    del state, batch, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms_per_step": statistics.median(times), "peak_bytes": peak,
+            "estimate_bytes": est["peak_bytes"], "losses": losses}
+
+
+def lm_remat_phase(dev, train_res):
+    """A17 on the card: lm-100m with remat beside phase 26's run without
+    (ms per step, peak, the dry run's estimate of the remat peak, the
+    losses), then one full-width falcon-mamba-7b layer with remat on and
+    off (ROADMAP §B note 7)."""
+    from repro_torch.launch import dryrun
+    res = _lm_100m_run(dev, remat=True)
+    est = dryrun.lower_one(
+        "lm-100m", "train_4k", "artemis", workers=LM_TRAIN_W,
+        batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ, optimizer="adam",
+        cfg_overrides={"remat": True})
+    check(est["status"] == "ok", f"lm remat: dry run {est}")
+    gap = max(abs(a - b) for a, b in zip(res["losses"],
+                                         train_res["losses"]))
+    mine, theirs = res.pop("final_params"), train_res.pop("final_params")
+    param_gap = max(float((mine[k] - theirs[k]).abs().max()) for k in mine)
+    # remat recomputes the same products on the same inputs: bit for bit on
+    # the CPU (tests/test_torch_remat.py) and on the card (PERF.md §6)
+    check(gap == 0 and param_gap == 0,
+          f"lm remat: losses {res['losses']} against phase 26's "
+          f"{train_res['losses']}, parameters {param_gap} apart after "
+          f"{len(res['losses'])} steps")
+    res.update(estimate_bytes=est["peak_bytes"], loss_gap=gap,
+               param_gap=param_gap)
+    log(f"lm remat lm-100m: {res['us_per_step']:.1f} us per step against "
+        f"{train_res['us_per_step']:.1f} without (x"
+        f"{res['us_per_step'] / train_res['us_per_step']:.4f}); peak "
+        f"{res['peak_bytes']} bytes against {train_res['peak_bytes']} "
+        f"(x{res['peak_bytes'] / train_res['peak_bytes']:.4f}); dry run's "
+        f"estimate {est['peak_bytes']} (x"
+        f"{est['peak_bytes'] / res['peak_bytes']:.4f} of the measured); "
+        f"losses and parameters bit for bit with phase 26's")
+    falcon = {r: _falcon_layer(dev, r) for r in (False, True)}
+    for r, f in falcon.items():
+        log(f"lm remat falcon-mamba-7b, 1 layer at full width, batch "
+            f"{REMAT_FALCON_B} x {REMAT_FALCON_SEQ}, remat {r}: "
+            f"{f['ms_per_step']:.3f} ms per step, peak {f['peak_bytes']} "
+            f"bytes, the dry run's estimate {f['estimate_bytes']} (x"
+            f"{f['estimate_bytes'] / f['peak_bytes']:.4f}); losses "
+            f"{[round(x, 4) for x in f['losses']]}")
+    res["falcon"] = falcon
+    return res
+
+
+def lm_pg_train_phase(dev):
+    """A18 on the card: ``launch.train.main --ranks PG_TRAIN_RANKS`` on
+    lm-100m at full width (gloo ranks on this card), PG_TRAIN_STEPS steps
+    with local_steps = PG_TRAIN_LOCAL: the losses finite and falling, and
+    bucket_acc launched W times a communicating step by every rank (the
+    ranks' own counts, summed in the run's ``run_end`` event)."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch import experiments as ex
+    from repro_torch.launch import train
+    from repro_torch.obs import events
+    gc.collect()
+    torch.cuda.empty_cache()            # the ranks need the card's memory
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_pg_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    path = os.path.join(out_dir, "events.jsonl")
+    try:
+        t0 = time.perf_counter()
+        logs = _quiet(train.main, [
+            "--arch", "lm-100m", "--steps", str(PG_TRAIN_STEPS), "--batch",
+            str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ), "--dist",
+            "artemis", "--ranks", str(PG_TRAIN_RANKS), "--local-steps",
+            str(PG_TRAIN_LOCAL), "--log-every", "1", "--events", path,
+            "--device", dev.type],
+            config=ex.lm_config(full_100m=True))
+        secs = time.perf_counter() - t0
+        evs = events.read_events(path)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    check(not events.validate_events(evs), "pg train: invalid events")
+    losses = [r["loss"] for r in logs]
+    check(len(losses) == PG_TRAIN_STEPS and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0], f"pg train: losses {losses}")
+    launched = evs[-1]["kernel_launches"]
+    comm = PG_TRAIN_STEPS // PG_TRAIN_LOCAL
+    want = PG_TRAIN_RANKS * PG_TRAIN_RANKS * comm
+    check(launched["bucket_acc"] == want,
+          f"pg train: bucket_acc launched {launched['bucket_acc']} times by "
+          f"the ranks, expected {want} (W a rank a communicating step)")
+    steady = [e["dur_s"] for e in evs if e["ev"] == "span"]
+    layout = evs[0]["config"]["layout"]
+    log(f"pg train lm-100m: {PG_TRAIN_RANKS} ranks (gloo, one card), layout "
+        f"{layout}, "
+        f"{PG_TRAIN_STEPS} steps, local_steps {PG_TRAIN_LOCAL}, batch "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: losses {losses}; the ranks' "
+        f"kernel launches {launched}; spans {steady} s; {secs:.1f} s with "
+        f"the ranks' start")
+    return {"losses": losses, "launches": launched["bucket_acc"],
+            "layout": layout, "seconds": secs}
 
 
 # the kernel rows of ``python -m repro_torch.bench kernel``: every kernel of
@@ -2846,23 +3047,33 @@ def main():
         f"{profile_clean['device_ops_per_round']:.1f}")
     obs_res = obs_smoke_phase()
     lm_secs, lm_l, lm_res = {}, {}, {}
-    for name, phase in (("lm_reduced", lm_reduced_phase),
-                        ("lm_serve", lm_serve_phase),
-                        ("lm_train", lm_train_phase)):
+    for name, phase in (
+            ("lm_reduced", lm_reduced_phase),
+            ("lm_serve", lm_serve_phase),
+            ("lm_train", lm_train_phase),
+            ("lm_remat", lambda d: lm_remat_phase(d, lm_res["lm_train"])),
+            ("lm_pg_train", lm_pg_train_phase)):
         reset_launches()                # each LM path on its own
         t_lm = time.perf_counter()
         lm_res[name] = phase(dev)
         lm_secs[name] = time.perf_counter() - t_lm
         lm_l[name] = mesh_counts()
+    # the ranks count their own launches
+    lm_l["lm_pg_train"]["bucket_acc"] = lm_res["lm_pg_train"]["launches"]
     serve_res, train_res = lm_res["lm_serve"], lm_res["lm_train"]
     tool_res = {"dryrun": dryrun_phase(dev, serve_res, train_res),
                 "bench": bench_phase(), "analysis": analysis_phase()}
     check(tuple([LM_TRAIN_W] + train_res["layout"]) == lm_stacks["train"],
           f"lm train: its stack {train_res['layout']} at W = {LM_TRAIN_W} "
           f"is not the one held to the plain hop, {lm_stacks['train']}")
+    pg_layout = lm_res["lm_pg_train"]["layout"]
+    check(tuple(pg_layout) == lm_stacks["train"][1:],
+          f"pg train: its ranks' stack {pg_layout} is not the one held to "
+          f"the plain out-of-place bucket_acc, {lm_stacks['train'][1:]}")
     check(lm_l["lm_reduced"]["bucket_acc"] > 0
           and lm_l["lm_reduced"]["bucket_ring_sum"] > 0
-          and lm_l["lm_train"]["bucket_acc"] > 0,
+          and min(lm_l[k]["bucket_acc"] for k in ("lm_train", "lm_remat",
+                                                  "lm_pg_train")) > 0,
           f"an LM path launched B3 or B4 0 times: {lm_l}")
     for k in ("bucket_acc", "bucket_ring_sum"):
         for name in lm_l:
@@ -2877,6 +3088,21 @@ def main():
         f"(busy share {_fmt_share(train_res['busy_share'])}, "
         f"{train_res['device_ops_per_step']:.1f} device ops, peak "
         f"{train_res['peak_bytes']} bytes)")
+    remat_res = lm_res["lm_remat"]
+    log(f"us per step, lm train lm-100m with remat: "
+        f"{remat_res['us_per_step']:.1f} (peak {remat_res['peak_bytes']} "
+        f"bytes, estimate {remat_res['estimate_bytes']}); falcon-mamba-7b "
+        f"layer ms per step / peak bytes without and with remat: " + ", ".join(
+            f"{f['ms_per_step']:.3f} / {f['peak_bytes']}"
+            for f in remat_res["falcon"].values()))
+    for arch, res in serve_res.items():
+        chk = res["decode_vs_prefill"]
+        if "flips" in chk:
+            log(f"C5, lm serve {arch}: bf16 expert flips against prefill "
+                f"{chk['flips']} of {chk['choices']} with cuBLAS's bf16 "
+                f"reduction allowed ({chk['bf16_reduction_allowed']}), "
+                f"{chk['flips_bf16_reduction_off']} with it forbidden, "
+                f"{chk['flips_f32']} at f32 compute")
     log(f"fault phases {fault_secs:.1f} s; telemetry grid {tel_secs:.1f} s; "
         f"mesh phases {mesh_secs:.1f} s; leaf phases {leaf_secs:.1f} s; "
         f"mesh fault phases {mflt_secs:.1f} s; pg ring {pg_secs:.1f} s; "

@@ -22,6 +22,12 @@ Rules:
                                 round or one bucketed mesh step, under
                                 ``torch.cuda.set_sync_debug_mode("error")``,
                                 listed with its file and line.
+  local-step-sends       error  a local step of ``core/dist_pg.py``
+                                (``local_steps > 1``, the accumulate-only
+                                step between communicating ones) sends or
+                                all-reduces anything over the process
+                                group (the reference's local step has no
+                                collective in its HLO).
   missing-donation       error  the ring's accumulator changes its storage
                                 across the in-place hops of
                                 ``bucket_acc_hop_`` (the port's one
@@ -61,6 +67,7 @@ RULES = {
     "uncompressed-wire": "error",
     "f32-allreduce-payload": "error",
     "host-sync": "error",
+    "local-step-sends": "error",
     "missing-donation": "error",
     "wire-entry-error": "error",
 }
@@ -224,8 +231,9 @@ PG_WORLD = 2
 
 
 def _pg_rank(rank: int, world: int, out_dir: str, device: str) -> None:
-    """One rank: a step of each wire with counting wrappers around the
-    group's sends and all-reduces; rank 0 writes the tallies."""
+    """One rank: a step of each wire, and a local step of each with
+    ``local_steps = 2``, with counting wrappers around the group's sends
+    and all-reduces; rank 0 writes the tallies."""
     import torch.distributed as tdist
     from repro_torch.core import dist_pg
     from repro_torch.models.toy import ToyMLP
@@ -261,6 +269,15 @@ def _pg_rank(rank: int, world: int, out_dir: str, device: str) -> None:
             tally.clear()
             step_fn(init_state(params), batch)
             out[w] = {f"{op}/{dt}": b for (op, dt), b in tally.items()}
+            local = D.DistConfig(variant="artemis", s=3, wire=w,
+                                 local_steps=2)
+            init_state, _ = dist_pg.make_train_step(model, sgd(0.05), local,
+                                                    device=dev)
+            tally.clear()
+            dist_pg.make_local_step(model, local)(
+                init_state(params), batch)
+            out[f"{w}:local"] = {f"{op}/{dt}": b
+                                 for (op, dt), b in tally.items()}
     if rank == 0:
         with open(os.path.join(out_dir, "tally.json"), "w") as fh:
             json.dump(out, fh)
@@ -269,7 +286,7 @@ def _pg_rank(rank: int, world: int, out_dir: str, device: str) -> None:
 def audit_pg_ring(device=None) -> List[Finding]:
     """Two gloo ranks of ``core/dist_pg.py`` on ``device``, one step of each
     wire: the sends against the wire model, the all-reduces against one
-    f32 payload."""
+    f32 payload; a local step of each: nothing sent."""
     from repro_torch.core import dist_pg
     dev = default_device(device)
     params = _toy_params()
@@ -285,6 +302,13 @@ def audit_pg_ring(device=None) -> List[Finding]:
             got = json.load(fh)
     findings: List[Finding] = []
     for w, tally in got.items():
+        if w.endswith(":local"):
+            if tally:
+                findings.append(Finding(
+                    rule="local-step-sends", severity="error",
+                    path=f"pg_ring:{w}", line=0,
+                    message=f"a local step moved {tally} bytes"))
+            continue
         dcfg = D.DistConfig(variant="artemis", s=3, wire=w)
         measured = {tuple(k.split("/")): v for k, v in tally.items()}
         findings += wire_findings(

@@ -175,6 +175,15 @@ state_specs = _on_a_process_group("state_specs")
 state_shardings = _on_a_process_group("state_shardings")
 
 
+def default_alpha(params, s: int) -> float:
+    """Thm 1 alpha, 1 / (2 (omega + 1)), at the largest omega over the
+    leaves of ``params`` (a dict or a sequence of tensors): each leaf's
+    message is its last axis (one element for a 0-d leaf)."""
+    leaves = params.values() if isinstance(params, dict) else params
+    return default_alpha_bucketed(
+        max(leaf_row(tuple(leaf.shape)) for leaf in leaves), s)
+
+
 def default_alpha_bucketed(row: int, s: int) -> float:
     """Thm 1 alpha for the bucketed wire: every row has length ``row``."""
     return float(1.0 / (2.0 * (wire.squant_omega(row, s) + 1.0)))
@@ -195,6 +204,21 @@ def _rows(x: torch.Tensor, lead: int) -> torch.Tensor:
     """A 0-d leaf (``lead`` leading axes and nothing else) as one message of
     one element; other tensors as they are."""
     return x.unsqueeze(-1) if x.dim() == lead else x
+
+
+def bucket_encode(buckets: torch.Tensor, u: torch.Tensor, s: int):
+    """The row squant encode of a ``[B, R, C]`` bucket stack with the
+    uniforms ``u`` of its shape: (levels int8 [B, R, C], scales f32 [B, R,
+    1]).  The aggregates encode through ``bucketing.encode_buckets`` with
+    any codec."""
+    return wire.row_squant_encode(buckets, u, s)
+
+
+def payload_decode(codec: wire.Codec,
+                   payload: wire.WirePayload) -> torch.Tensor:
+    """Decode a bucket-stacked payload (leaves with a leading B axis) to
+    ``[B, R, C]`` f32."""
+    return bucketing.decode_buckets(codec, payload)
 
 
 def payload_nbytes(payload: wire.WirePayload) -> float:
@@ -659,24 +683,33 @@ def _worker_grads(grad_fn, dcfg: DistConfig, params: Params,
     return leaves, (loss.mean(), {k: v.mean() for k, v in metrics.items()})
 
 
-def make_local_step(model, dcfg: DistConfig, n_workers: int):
+def make_local_step(model, dcfg: DistConfig, n_workers: int, *,
+                    grad_fn: Optional[Callable] = None):
     """Accumulate-only step for ``local_steps > 1``: run it k-1 times
     between ``make_train_step``'s communicating steps.  It adds each
     worker's gradient to its accumulator (in bucket space on the bucketed
-    wire, per leaf on the leaf wire) and moves nothing over the wire."""
+    wire, per leaf on the leaf wire) and moves nothing over the wire.
+    ``grad_fn``: the per-worker gradients (``vmap_grads``'s contract), by
+    default ``vmap_grads(model)``."""
     if dcfg.local_steps < 2:
         raise ValueError("make_local_step needs local_steps > 1")
-    grad_fn = vmap_grads(model)
+    grad_fn = vmap_grads(model) if grad_fn is None else grad_fn
 
     def local_fn(state: TrainState, batch):
         g, out = _worker_grads(grad_fn, dcfg, state.params, batch, n_workers)
-        art = state.artemis
-        acc = (art.acc + g if dcfg.bucketed
-               else [a + x.to(a.dtype) for a, x in zip(art.acc, g)])
-        return dataclasses.replace(
-            state, artemis=dataclasses.replace(art, acc=acc)), out
+        return accumulate_local(dcfg, state, g), out
 
     return local_fn
+
+
+def accumulate_local(dcfg: DistConfig, state: TrainState, g) -> TrainState:
+    """``state`` with the gradients ``g`` (the ``[W, B, R, C]`` bucket stack,
+    or the per-leaf ``[W, *shape]`` stacks) added to its accumulator."""
+    art = state.artemis
+    acc = (art.acc + g if dcfg.bucketed
+           else [a + x.to(a.dtype) for a, x in zip(art.acc, g)])
+    return dataclasses.replace(state,
+                               artemis=dataclasses.replace(art, acc=acc))
 
 
 def _fold_local(dcfg: DistConfig, art: ArtemisDistState, g):

@@ -26,11 +26,16 @@ the reference's per-worker copies do.  ``reduce_impl``:
   * ``"psum"``: ``all_reduce`` of the decoded payload.
 
 The leaf wire runs one ring per leaf, pipelined for the row-scale payload,
-whatever ``reduce_impl`` says (as the reference's leaf wire).  Every step
-communicates: ``local_steps > 1`` runs on the simulated axis only.  Loss and
+whatever ``reduce_impl`` says (as the reference's leaf wire).  Loss and
 metrics are the mean over the ranks and the telemetry's counts the sum
 (one ``all_reduce`` each); ``wire_bytes`` is this rank's bytes times the
 ranks, all ranks moving the same payload.
+
+``local_steps = k > 1`` (the reference's ``make_local_step``): k - 1 calls
+of ``make_local_step``'s step add this rank's gradient to its accumulator
+and send nothing, not even the loss (each returns this rank's own); the
+communicating step folds ``(acc + g) / k`` in, as the simulated axis's
+does.
 
 Backends.  The group's backend is the caller's.  NCCL takes CUDA tensors
 and refuses two ranks on one device; gloo's send and receive move host
@@ -206,6 +211,38 @@ def rank_grads(model) -> Callable:
     return torch.func.grad_and_value(model.loss, has_aux=True)
 
 
+def mean_over_ranks(ring: ProcessRing, loss: torch.Tensor,
+                    metrics: Dict[str, torch.Tensor]):
+    """(loss, metrics) averaged over the ranks: one ``all_reduce``."""
+    names = sorted(metrics)
+    mean = ring.sum(torch.stack([loss.detach()] + [
+        metrics[k].detach().to(loss.dtype) for k in names])) / ring.n
+    return mean[0], {k: mean[i + 1] for i, k in enumerate(names)}
+
+
+def make_local_step(model, dcfg: D.DistConfig, *,
+                    grad_fn: Optional[Callable] = None):
+    """Accumulate-only step for ``local_steps > 1`` on this rank (the
+    reference's ``make_local_step``): run it k-1 times between
+    ``make_train_step``'s communicating steps.  It adds this rank's
+    gradient to its accumulator (in bucket space on the bucketed wire, per
+    leaf on the leaf wire) and sends nothing; ``step_fn(state, batch) ->
+    (state, (loss, metrics))`` returns this rank's own loss and metrics."""
+    if dcfg.local_steps < 2:
+        raise ValueError("make_local_step needs local_steps > 1")
+    grad_fn = rank_grads(model) if grad_fn is None else grad_fn
+
+    def local_fn(state: D.TrainState, batch: Dict[str, torch.Tensor]):
+        grads, out = grad_fn(state.params, batch)
+        g = [grads[k][None] for k in state.params]
+        if dcfg.bucketed:
+            g = bucketing.bucketize(
+                dcfg.layout(list(state.params.values())), g)
+        return D.accumulate_local(dcfg, state, g), out
+
+    return local_fn
+
+
 def make_train_step(model, optimizer, dcfg: D.DistConfig, group=None,
                     device=None, *, noise: Optional[MeshNoiseSource] = None,
                     grad_fn: Optional[Callable] = None):
@@ -218,11 +255,9 @@ def make_train_step(model, optimizer, dcfg: D.DistConfig, group=None,
     ``step_fn(state, batch) -> (state, (loss, metrics))`` is one
     communicating step on this rank's rows of the batch; loss and metrics
     are the mean over the ranks, ``metrics["obs"]`` the telemetry's totals
-    when ``dcfg.telemetry``.  ``step_fn.ring`` is the ``ProcessRing``."""
-    if dcfg.local_steps > 1:
-        raise ValueError("the process-group ring communicates every step; "
-                         "local_steps > 1 runs on the simulated axis "
-                         "(core/dist.py)")
+    when ``dcfg.telemetry``.  With ``local_steps > 1`` it folds in what
+    ``make_local_step`` accumulated.  ``step_fn.ring`` is the
+    ``ProcessRing``."""
     dev = default_device(device)
     ring = ProcessRing(group, dev, dcfg.reduce_impl)
     grad_fn = rank_grads(model) if grad_fn is None else grad_fn
@@ -251,6 +286,8 @@ def make_train_step(model, optimizer, dcfg: D.DistConfig, group=None,
         if dcfg.bucketed:
             g = bucketing.bucketize(dcfg.layout(plist), g)
         art = state.artemis
+        if dcfg.local_steps > 1:
+            g, art = D._fold_local(dcfg, art, g)
         draws = rank_draws(D._draws(source, dcfg, art.step, leaves),
                            ring.rank)
         if dcfg.bucketed:
@@ -264,17 +301,14 @@ def make_train_step(model, optimizer, dcfg: D.DistConfig, group=None,
                                               state.step)
         params = {k: p - u.to(p.dtype)
                   for (k, p), u in zip(state.params.items(), updates)}
-        names = sorted(metrics)
-        mean = ring.sum(torch.stack([loss.detach()] + [
-            metrics[k].detach().to(loss.dtype) for k in names])) / ring.n
-        metrics = {k: mean[i + 1] for i, k in enumerate(names)}
+        loss, metrics = mean_over_ranks(ring, loss, metrics)
         if obs is not None:
             counts = [k for k in obs if k != "wire_bytes"]
             tot = ring.sum(torch.stack([obs[k] for k in counts]))
             metrics["obs"] = {"wire_bytes": obs["wire_bytes"] * ring.n,
                               **{k: tot[i] for i, k in enumerate(counts)}}
         return D.TrainState(params, opt_state, art, state.step + 1), (
-            mean[0], metrics)
+            loss, metrics)
 
     step_fn.ring = ring
     return init_state, step_fn
@@ -302,13 +336,15 @@ def _rank_main(target: Callable, rank: int, world: int, port: int,
 
 
 def launch(target: Callable, world_size: int, args: tuple = (), *,
-           backend: str = "gloo", timeout: float = 120.0) -> List[int]:
+           backend: str = "gloo",
+           timeout: Optional[float] = 120.0) -> List[int]:
     """Run ``target(rank, world_size, *args)`` in ``world_size`` new
     processes (spawned, so ``target`` and ``args`` must pickle), each in a
     process group over ``tcp://localhost`` with the 60 s collective
-    timeout.  Waits at most ``timeout`` seconds for them all, then
-    terminates whatever still runs.  Returns the exit codes (None for a
-    process that was terminated)."""
+    timeout.  Waits at most ``timeout`` seconds for them all (None: until
+    they end; a rank that dies fails its peers' next collective within the
+    collective timeout), then terminates whatever still runs.  Returns the
+    exit codes (None for a process that was terminated)."""
     ctx = multiprocessing.get_context("spawn")
     port = free_port()
     procs = [ctx.Process(target=_rank_main, args=(target, r, world_size, port,
@@ -316,10 +352,11 @@ def launch(target: Callable, world_size: int, args: tuple = (), *,
              for r in range(world_size)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout
+    deadline = None if timeout is None else time.monotonic() + timeout
     codes: List[Optional[int]] = []
     for p in procs:
-        p.join(max(deadline - time.monotonic(), 0.0))
+        p.join(None if deadline is None
+               else max(deadline - time.monotonic(), 0.0))
         codes.append(p.exitcode)
     for p in procs:
         if p.is_alive():

@@ -202,16 +202,22 @@ def lower_one(arch: str, shape_name: str, dist_variant: str = "none", *,
 
 
 def _parse_overrides(items) -> dict:
+    """``k=v`` items as a dict: ints, floats, ``True``/``False`` and
+    ``None`` as such, anything else a string."""
     out = {}
+    words = {"None": None, "True": True, "False": False}
     for it in items or []:
         k, v = it.split("=", 1)
+        if v in words:
+            out[k] = words[v]
+            continue
         for cast in (int, float):
             try:
                 v = cast(v)
                 break
             except ValueError:
                 continue
-        out[k] = None if v == "None" else v
+        out[k] = v
     return out
 
 
@@ -225,8 +231,10 @@ def _combos(workers: int):
                 yield arch, shape, dv
 
 
-def run_all(jobs: int, workers: int, timeout: float = 1800.0) -> list:
-    """Every combo in its own subprocess, ``jobs`` at a time."""
+def run_all(jobs: int, workers: int, timeout: float = 1800.0,
+            cfg_override=()) -> list:
+    """Every combo in its own subprocess, ``jobs`` at a time, each with the
+    ``k=v`` config overrides of ``cfg_override``."""
     env = dict(os.environ)
     src = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -241,6 +249,8 @@ def run_all(jobs: int, workers: int, timeout: float = 1800.0) -> list:
                 cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                        "--arch", arch, "--shape", shape, "--dist", dv,
                        "--workers", str(workers), "--out", out]
+                for it in cfg_override:
+                    cmd += ["--cfg-override", it]
                 proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True,
                                         env=env)
@@ -303,7 +313,8 @@ def main(argv=None) -> int:
                  "the sharded mesh (launch/mesh.py) and the multi-pod dry "
                  "run are queued in ROADMAP.md §A")
     if args.all:
-        results = run_all(args.jobs, args.workers)
+        results = run_all(args.jobs, args.workers,
+                          cfg_override=args.cfg_override)
     else:
         if not (args.arch and args.shape):
             ap.error("--arch and --shape (or --all)")

@@ -1,7 +1,8 @@
 """Wire models of the mesh's compressed collectives and the dry run's
 roofline (port of ``repro/launch/roofline.py``: ``_codec_split``,
 ``_default_bucket_split``, ``bucketed_wire_model``, ``leaf_wire_model``,
-``Roofline``, ``active_params``, ``model_flops`` and ``markdown_table``).
+``Roofline``, ``count_params``, ``active_params``, ``model_flops`` and
+``markdown_table``).
 The reference's HLO parsers have no meaning in torch and are not copied.
 
 The models count the bytes one worker puts on the inter-worker wire per
@@ -146,6 +147,13 @@ class Roofline:
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def count_params(params) -> int:
+    """The number of parameters of a flat params dict (or a sequence of
+    tensors)."""
+    leaves = params.values() if isinstance(params, dict) else params
+    return int(sum(leaf.numel() for leaf in leaves))
 
 
 def active_params(cfg, params) -> float:

@@ -1,13 +1,24 @@
 """Training driver (port of ``repro/launch/train.py``).
 
 Trains a language model of ``repro_torch.configs`` on the synthetic corpus,
-with every Artemis variant over W workers simulated on one card (the
-bucketed ring of ``core/dist.py``), checkpointing, loss logging through the
-``obs`` event log and spans, fault injection and the host-side divergence
-sentinel with lr backoff and rollbacks.
+with every Artemis variant over W workers, checkpointing, loss logging
+through the ``obs`` event log and spans, fault injection and the host-side
+divergence sentinel with lr backoff and rollbacks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \\
       --reduced --steps 100 --batch 8 --seq 128 --dist artemis --workers 2
+
+The W workers are simulated on one device (``--workers W``: the bucketed
+ring of ``core/dist.py``), or run one process each (``--ranks W``: the
+process-group ring of ``core/dist_pg.py`` over gloo, the counterpart of the
+reference's worker mesh axis).  Over ranks, each rank takes its contiguous
+rows of every global batch (``data/pipeline.ShardedBatches``), the logged
+loss is the mean over the ranks (so every rank takes the same rollback
+decision), rank 0 writes the event log and the log file, and each rank
+checkpoints into ``<ckpt-dir>/rank<r>`` (``--resume`` restores each rank's
+own).  On CUDA rank r takes card r mod the cards there are.  The event
+log's ``run_end`` counts the run's kernel launches (over ranks, their
+sum).
 
 It runs on CUDA unless ``--device`` names another device.
 """
@@ -15,6 +26,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
 from typing import Optional
 
@@ -24,18 +37,21 @@ import torch
 from repro_torch import configs, default_device
 from repro_torch.checkpoint import checkpointer
 from repro_torch.core import dist
+from repro_torch.core import dist_pg
 from repro_torch.core import faults
-from repro_torch.data.pipeline import Batches
+from repro_torch.data.pipeline import ShardedBatches
 from repro_torch.data.synthetic import TokenStream, TokenStreamConfig
+from repro_torch.kernels import KERNELS
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build_model
 from repro_torch.obs import events as obs_events
 from repro_torch.obs import spans as obs_spans
 from repro_torch.optim import adam, sgd
 
-_EPILOG = ("The reference's --mesh (a data x model device mesh) has no "
-           "counterpart on one card: W workers are simulated on the device "
-           "(--workers) and the model is not sharded.")
+_EPILOG = ("The reference's --mesh (a data x model device mesh) is not "
+           "ported yet (ROADMAP.md §A, A14): W workers are simulated on the "
+           "device (--workers) or run one process each (--ranks), and the "
+           "model is not sharded.")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -53,6 +69,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--workers", type=int, default=1,
                     help="W, the workers simulated on the device (the batch "
                          "is split over them); ignored with --dist none")
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="W workers as W processes, one worker each "
+                         "(core/dist_pg.py over gloo), each on its rows of "
+                         "the batch; in place of --workers")
+    ap.add_argument("--mesh", default=None,
+                    help="refused: the sharded mesh is not ported yet")
     ap.add_argument("--s", type=int, default=1, help="quantization levels")
     ap.add_argument("--participation", type=float, default=1.0)
     ap.add_argument("--local-steps", type=int, default=1,
@@ -86,10 +108,62 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None, *, config: Optional[ModelConfig] = None):
-    """Run the CLI on ``argv``; returns the logged records.  ``config``
-    (for callers in Python) replaces the ``--arch`` lookup."""
-    args = _parser().parse_args(argv)
+    """Run the CLI on ``argv``; returns the logged records (rank 0's with
+    ``--ranks``).  ``config`` (for callers in Python) replaces the
+    ``--arch`` lookup."""
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.mesh is not None:
+        ap.error("--mesh: the sharded mesh (launch/mesh.py) is not ported "
+                 "yet; it is queued in ROADMAP.md §A (A14)")
+    if not args.ranks:
+        return _train(args, config)
+    if args.dist == "none":
+        ap.error("--ranks needs a wire (--dist other than none)")
+    if args.workers not in (1, args.ranks):
+        ap.error("--ranks sets W; --workers is for the simulated workers")
+    if args.batch % args.ranks:
+        ap.error(f"--batch {args.batch} does not split over {args.ranks} "
+                 f"ranks")
+    default_device(args.device)         # raises here, not in every rank
+    with tempfile.TemporaryDirectory() as out_dir:
+        codes = dist_pg.launch(_rank_train, args.ranks,
+                               (args, config, out_dir), timeout=None)
+        outs = []
+        for r in range(args.ranks):
+            path = os.path.join(out_dir, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as fh:
+                    outs.append(json.load(fh))
+    errors = [o["error"] for o in outs if "error" in o]
+    if errors or codes != [0] * args.ranks:
+        raise RuntimeError(f"a rank failed (exit codes {codes})"
+                           + (f": {errors[0]}" if errors else ""))
+    return outs[0]["logs"]
+
+
+def _rank_train(rank: int, world: int, args, config, out_dir: str) -> None:
+    """One rank of ``--ranks``: trains, then writes its logs (or its error)
+    to ``out_dir/rank<r>.json``."""
+    out = {}
+    try:
+        out["logs"] = _train(args, config, rank=rank, world=world)
+    except Exception as e:  # noqa: BLE001 (handed to the parent, re-raised)
+        out["error"] = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+
+
+def _train(args, config: Optional[ModelConfig], rank: int = 0,
+           world: int = 0):
+    """The training loop: W = ``args.workers`` simulated workers, or (with
+    ``world``) this rank of ``world`` in the default process group."""
     dev = default_device(args.device)
+    if world and dev.type == "cuda" and args.device in (None, "cuda"):
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
     cfg = config or configs.get_config(args.arch, reduced=args.reduced)
     model = build_model(cfg)
 
@@ -105,37 +179,55 @@ def main(argv=None, *, config: Optional[ModelConfig] = None):
                                p_participation=args.participation,
                                local_steps=args.local_steps,
                                faults=fc if fc.enabled else None)
-        n_workers = args.workers
+        n_workers = world or args.workers
 
     def optimizer(scale):
         lr = args.lr * scale
         return adam(lr) if args.optimizer == "adam" else sgd(lr)
 
+    def make_step(scale):
+        if world:
+            return dist_pg.make_train_step(model, optimizer(scale), dcfg,
+                                           device=dev)
+        return dist.make_train_step(model, optimizer(scale), dcfg,
+                                    n_workers, device=dev)
+
     params = model.init(torch.Generator(device=dev).manual_seed(0))
-    init_state, step_fn = dist.make_train_step(model, optimizer(1.0), dcfg,
-                                               n_workers, device=dev)
-    local_fn = (dist.make_local_step(model, dcfg, n_workers)
-                if dcfg and dcfg.local_steps > 1 else None)
+    init_state, step_fn = make_step(1.0)
+    local_fn = None
+    if dcfg and dcfg.local_steps > 1:
+        local_fn = (dist_pg.make_local_step(model, dcfg) if world
+                    else dist.make_local_step(model, dcfg, n_workers))
 
     stream = TokenStream(TokenStreamConfig(
         vocab=cfg.vocab, seq_len=args.seq, batch=args.batch), device="cpu")
-    batches = Batches(stream, dev)
+    batches = ShardedBatches(stream, dev, rank=rank, world=world or 1)
+    ckpt_dir = args.ckpt_dir
+    if ckpt_dir and world:
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
 
-    # console output + optional JSONL log share one schema-checked sink
-    log = obs_events.EventLog(args.events, echo=True)
+    # console output + optional JSONL log share one schema-checked sink;
+    # over ranks, rank 0's alone
+    log = (obs_events.EventLog(args.events, echo=True) if rank == 0
+           else obs_events.EventLog(os.devnull))
+    # the bucketed wire's [B, R, C] stack, as the ring folds it
+    layout = (list(dcfg.layout(list(params.values())).shape)
+              if dcfg is not None and dcfg.bucketed else None)
     log.start(config={"arch": args.arch, "dist": args.dist,
                       "steps": args.steps, "batch": args.batch,
                       "seq": args.seq, "lr": args.lr,
-                      "workers": n_workers, "device": str(dev)},
+                      "workers": n_workers, "ranks": world,
+                      "device": str(dev), "layout": layout},
               fingerprint=f"{args.arch}:{args.dist}:s{args.s}")
     try:
         state = init_state(params)
-        if (args.resume and args.ckpt_dir
-                and checkpointer.latest_step(args.ckpt_dir) is not None):
-            state = checkpointer.restore(args.ckpt_dir, state)
+        if (args.resume and ckpt_dir
+                and checkpointer.latest_step(ckpt_dir) is not None):
+            state = checkpointer.restore(ckpt_dir, state)
             log.emit("note", text=f"restored step {state.step}")
 
         logs = []
+        launched = [k.launches for k in KERNELS]
         obs_spans.reset()
         t0 = time.perf_counter()
         first_s = None      # the first communicating step builds kernels
@@ -146,7 +238,8 @@ def main(argv=None, *, config: Optional[ModelConfig] = None):
         i = start
         while i < start + args.steps:
             batch = batches.batch_at(i)
-            if local_fn is not None and (i + 1) % args.local_steps:
+            local = local_fn is not None and (i + 1) % args.local_steps
+            if local:
                 state, (loss, metrics) = local_fn(state, batch)
             elif first_s is None:
                 with obs_spans.span("train/compile+first_step"):
@@ -157,6 +250,10 @@ def main(argv=None, *, config: Optional[ModelConfig] = None):
                 with obs_spans.span("train/step"):
                     state, (loss, metrics) = step_fn(state, batch)
             if i % args.log_every == 0 or i == start + args.steps - 1:
+                if local and world:
+                    # a rank's local step returns its own loss
+                    loss, metrics = dist_pg.mean_over_ranks(step_fn.ring,
+                                                            loss, metrics)
                 loss_f = float(loss)
                 bad = not np.isfinite(loss_f) or (
                     args.sentinel > 0 and loss_f > args.sentinel)
@@ -167,9 +264,7 @@ def main(argv=None, *, config: Optional[ModelConfig] = None):
                             f"loss diverged {rollbacks} times; giving up")
                     lr_scale *= args.backoff
                     state = good_state
-                    _, step_fn = dist.make_train_step(
-                        model, optimizer(lr_scale), dcfg, n_workers,
-                        device=dev)
+                    _, step_fn = make_step(lr_scale)
                     log.emit("rollback", step=state.step, count=rollbacks,
                              lr_scale=lr_scale)
                     i = state.step
@@ -183,22 +278,29 @@ def main(argv=None, *, config: Optional[ModelConfig] = None):
                 if not np.isfinite(loss_f):
                     raise RuntimeError("loss diverged")
                 good_state = state
-            if (args.ckpt_every and args.ckpt_dir
+            if (args.ckpt_every and ckpt_dir
                     and state.step % args.ckpt_every == 0):
-                checkpointer.save(args.ckpt_dir, state.step, state)
+                checkpointer.save(ckpt_dir, state.step, state)
             i += 1
-        if args.ckpt_dir:
-            checkpointer.save(args.ckpt_dir, state.step, state)
+        if ckpt_dir:
+            checkpointer.save(ckpt_dir, state.step, state)
         wall = time.perf_counter() - t0
         steady = obs_spans.total("train/step")
         if first_s is not None:
             log.emit("span", name="train/compile+first_step", dur_s=first_s)
         if steady > 0:
             log.emit("span", name="train/steady_steps", dur_s=steady)
-        log.end(status="ok", wall_s=round(wall, 3))
+        # the run's kernel launches (over ranks: summed over them)
+        launched = [k.launches - n for k, n in zip(KERNELS, launched)]
+        if world:
+            launched = step_fn.ring.sum(torch.tensor(
+                launched, device=dev)).tolist()
+        log.end(status="ok", wall_s=round(wall, 3),
+                kernel_launches={k.__name__: int(n)
+                                 for k, n in zip(KERNELS, launched)})
     finally:
         log.close()
-    if args.log_file:
+    if args.log_file and rank == 0:
         with open(args.log_file, "w") as f:
             json.dump(logs, f, indent=1)
     return logs

@@ -1,11 +1,12 @@
 """ModelConfig: one dataclass describing every supported architecture family
 (port of ``repro/models/config.py``, the same fields and defaults).
 
-``remat``, ``remat_policy`` and ``scan_unroll`` are XLA knobs of the
-reference (rematerialisation of the layer scan and its unroll factor).  They
-stay fields so that a config carries across unchanged, and they change no
-number here: the port runs its layers in an eager Python loop and keeps
-autograd's saved tensors.
+``remat`` and ``remat_policy`` rematerialise a train step's layers as the
+reference's ``jax.checkpoint`` does (``models/remat.py``, which lists the
+policies the port has).  ``scan_unroll``, the unroll factor of the
+reference's layer scan, stays a field so that a config carries across
+unchanged and has no effect: the port runs its layers in an eager Python
+loop, which has no scan to unroll.
 """
 from __future__ import annotations
 
@@ -57,8 +58,8 @@ class ModelConfig:
     softmax_dtype: str = "float32"   # attention score/softmax accumulation
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    remat: bool = True               # XLA only: no effect in the port
-    remat_policy: Optional[str] = None   # XLA only: no effect in the port
+    remat: bool = True               # rematerialise each layer (train)
+    remat_policy: Optional[str] = None   # None = full remat; models/remat.py
     scan_unroll: int = 1             # XLA only: no effect in the port
     source: str = ""            # citation for the assigned config
 

@@ -14,6 +14,14 @@ The layers run in a Python loop over the stack (the reference's
 ``lax.scan``); each layer's slice is cast to ``compute_dtype`` inside the
 loop, as the reference's ``_cast`` does per scan step, and never a whole
 stack.  Decode updates the cache in place.
+
+With ``cfg.remat`` (the reference's ``jax.checkpoint``) a train step
+rematerialises what the reference's does: each layer of a uniform stack,
+each whole pattern group (not the tail layers), each encoder layer,
+through ``models/remat.py`` under ``cfg.remat_policy``.  The enc-dec
+family's cross K/V are computed outside the wrapped layer and passed in,
+as the reference passes them precomputed.  Prefill and decode (a cache,
+or no gradient wanted) run the layers as they are.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 from repro_torch import default_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import remat as RM
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
@@ -164,6 +173,30 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
     return x, aux
 
 
+def _layer_fn(cfg: ModelConfig, kind: str, *, causal=True, cache=None,
+              pos=None):
+    """One layer as ``fn(x, positions, p, *cross_kv) -> (x, aux)`` for
+    ``Model._layers``."""
+    def fn(x, positions, p, *cross_kv):
+        return _apply_layer(cfg, kind, p, x, positions, causal=causal,
+                            cache=cache, pos=pos, cross_kv=cross_kv or None)
+    return fn
+
+
+def _group_fn(cfg: ModelConfig, *, cache=None, pos=None):
+    """One pattern group as ``fn(x, positions, p, aux) -> (x, aux)``, the
+    aux summed layer by layer into the carried one (the reference's
+    ``gbody``)."""
+    def fn(x, positions, p, aux):
+        for j, kind in enumerate(cfg.pattern):
+            x, a = _apply_layer(cfg, kind, sub(p, str(j)), x, positions,
+                                cache=None if cache is None else cache[j],
+                                pos=pos)
+            aux = aux + a
+        return x, aux
+    return fn
+
+
 def _init_layer_cache(cfg: ModelConfig, kind: str, b: int, cache_len: int,
                       lead, device):
     if kind == "mamba":
@@ -192,6 +225,9 @@ class Model:
         self.cfg = cfg.validate()
         self.kinds = cfg.layer_kinds()
         self.uniform = len(set(self.kinds)) == 1
+        # the products a rematerialised layer keeps; None: no remat
+        self.remat_keeps = (RM.saved_products(cfg.remat_policy)
+                            if cfg.remat else None)
         if not self.uniform:
             period = len(cfg.pattern)
             self.n_groups = cfg.n_layers // period
@@ -241,6 +277,23 @@ class Model:
             b, f, cfg.n_kv, cfg.hd)
         return ck, cv, torch.arange(f, device=enc_out.device)
 
+    def _layers(self, fn, x, positions, p: Params, *extra, cache=None):
+        """``fn(x, positions, p, *extra) -> (x, aux)``, rematerialised
+        (``models/remat.py``) when the config asks for it, no cache is
+        passed and a gradient may be taken.  Every tensor the layer reads
+        comes in as an argument: ``torch.func`` refuses a rematerialised
+        body that closes over one."""
+        if (self.remat_keeps is None or cache is not None
+                or not torch.is_grad_enabled()):
+            return fn(x, positions, p, *extra)
+        names = list(p)
+
+        def body(x, positions, *ts):
+            return fn(x, positions, dict(zip(names, ts[:len(names)])),
+                      *ts[len(names):])
+        return RM.checkpoint(body, self.remat_keeps, x, positions,
+                             *p.values(), *extra)
+
     def _run_uniform(self, stack: Params, x, positions, *, causal=True,
                      cache=None, pos=None, enc_out=None):
         cfg = self.cfg
@@ -248,13 +301,13 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
             p_l = _index(stack, i)
+            c_l = None if cache is None else _index(cache, i)
             # pin the residual stream to the compute dtype
             x = x.to(cfg.cdtype)
-            x, a = _apply_layer(
-                cfg, kind, p_l, x, positions, causal=causal,
-                cache=None if cache is None else _index(cache, i), pos=pos,
-                cross_kv=(None if enc_out is None
-                          else self._cross_kv(p_l, enc_out)))
+            kv = () if enc_out is None else self._cross_kv(p_l, enc_out)
+            x, a = self._layers(
+                _layer_fn(cfg, kind, causal=causal, cache=c_l, pos=pos), x,
+                positions, p_l, *kv, cache=c_l)
             aux = aux + a
         return x, aux
 
@@ -264,15 +317,18 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         stacks = [sub(params, f"groups/{j}") for j in range(len(cfg.pattern))]
         for g in range(self.n_groups):
-            for j, kind in enumerate(cfg.pattern):
-                c_l = None if cache is None else _index(cache["groups"][j], g)
-                x, a = _apply_layer(cfg, kind, _index(stacks[j], g), x,
-                                       positions, cache=c_l, pos=pos)
-                aux = aux + a
+            cs = (None if cache is None else
+                  [_index(cache["groups"][j], g)
+                   for j in range(len(cfg.pattern))])
+            # one group's layers as one dict, its leaves keyed "j/<leaf>"
+            p_g = {f"{j}/{k}": v for j in range(len(cfg.pattern))
+                   for k, v in _index(stacks[j], g).items()}
+            x, aux = self._layers(_group_fn(cfg, cache=cs, pos=pos), x,
+                                  positions, p_g, aux, cache=cs)
         for i, kind in enumerate(self.tail_kinds):
             c_l = None if cache is None else cache["tail"][i]
             x, a = _apply_layer(cfg, kind, sub(params, f"tail/{i}"), x,
-                                   positions, cache=c_l, pos=pos)
+                                positions, cache=c_l, pos=pos)
             aux = aux + a
         return x, aux
 
@@ -284,9 +340,9 @@ class Model:
         pos = torch.arange(f, dtype=torch.int32,
                            device=frames.device)[None].expand(b, f)
         stack = sub(params, "encoder")
+        layer = _layer_fn(cfg, "attn+mlp", causal=False)
         for i in range(cfg.enc_layers):
-            x, _ = _apply_layer(cfg, "attn+mlp", _index(stack, i), x, pos,
-                                   causal=False)
+            x, _ = self._layers(layer, x, pos, _index(stack, i))
         return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     # -- forward (train / prefill) -------------------------------------------

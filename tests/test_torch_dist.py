@@ -19,7 +19,9 @@ Tolerances:
   * whole steps: losses to rtol 1e-4; parameters, h and hbar to rtol 1e-4,
     atol 1e-6 on all but 1e-3 of the parameters, 1e-4 of the h entries and
     W * 1e-4 of the hbar entries (each sums W workers' levels), and every
-    parameter to atol 1e-4.  The gradients differ in
+    parameter to atol 1e-4; with local steps (``make_local_step`` between
+    the communicating steps) the communicating steps' losses, and the
+    accumulator as the parameters.  The gradients differ in
     the last bits (another matmul order; and each of the reference's
     workers keeps its own copy of the replicated parameters, updated with
     its own ring sum, where the port keeps worker 0's).  Once h tracks the
@@ -73,7 +75,11 @@ STEP_CASES = {"artemis": dict(variant="artemis"),
               # stragglers over a Markov chain, NaN blowups, scrubbing
               "faulted": dict(variant="artemis", p_participation=0.5,
                               faults=dict(straggler_rate=0.25, p_stay=0.8,
-                                          blowup_rate=0.3, scrub=True))}
+                                          blowup_rate=0.3, scrub=True)),
+              # local_steps = 2: steps 0 and 2 accumulate, step 1 folds
+              "local": dict(variant="artemis", local_steps=2),
+              "leaf_local": dict(variant="artemis", wire="leaf",
+                                 local_steps=2)}
 
 
 def _case_kw(case, flt):
@@ -82,6 +88,20 @@ def _case_kw(case, flt):
     if "faults" in kw:
         kw["faults"] = flt.FaultConfig(**kw["faults"])
     return kw
+
+
+def _local_at(case, i):
+    """Whether step i of ``case`` is an accumulate-only local step (the
+    train CLI's rule: every step but each k-th)."""
+    k = STEP_CASES[case].get("local_steps", 1)
+    return k > 1 and bool((i + 1) % k)
+
+
+def _batch_key(case, i):
+    """The batch key of step i: one batch throughout, but a batch a step
+    with local steps, so that the accumulated gradients differ from the
+    communicating step's (a fold that dropped them would show)."""
+    return 1 + i if STEP_CASES[case].get("local_steps", 1) > 1 else 1
 
 
 def _state_leaves(x):
@@ -446,6 +466,39 @@ def test_default_alpha_matches_reference(row, s):
     assert a == tdist._codec_alpha(tdist.DistConfig(s=s), [row])
 
 
+@pytest.mark.parametrize("n_layers,d,s", [(2, 32, 3), (4, 64, 1)])
+def test_default_alpha_over_leaves_matches_reference(n_layers, d, s):
+    jp = JToyMLP(n_layers, d).init(jax.random.PRNGKey(0))
+    params = ToyMLP(n_layers, d).init(torch.Generator().manual_seed(0))
+    a = tdist.default_alpha(params, s)
+    assert a == jdist.default_alpha(jp, s)
+    assert a == tdist.default_alpha(list(params.values()), s)
+
+
+@pytest.mark.parametrize("b,r,c,s", [(3, 4, 16, 1), (2, 5, 32, 3)])
+def test_bucket_encode_and_payload_decode_match_reference(b, r, c, s):
+    """The reference's per-bucket keys replayed as uniforms; rows of at
+    most 32 elements, where the norms add in XLA's order (bit for bit)."""
+    rng = np.random.default_rng(b * c + s)
+    x = rng.standard_normal((b, r, c)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    jq, jscale = jdist.bucket_encode(key, jnp.asarray(x), s)
+    u = np.stack([np.asarray(jax.random.uniform(k, (r, c), jnp.float32))
+                  for k in jb.bucket_keys(key, b)])
+    q, scale = tdist.bucket_encode(torch.from_numpy(x), torch.from_numpy(u),
+                                   s)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(scale.numpy(), np.asarray(jscale))
+    from repro.core import codec as jcodec
+    jc, tc = jcodec.make_codec("row_squant", c, s=s), tcodec.make_codec(
+        "row_squant", c, s=s)
+    jdec = jdist.payload_decode(jc, jax.vmap(jc.encode)(
+        jb.bucket_keys(key, b), jnp.asarray(x)))
+    dec = tdist.payload_decode(tc, tc.encode(torch.from_numpy(x),
+                                             torch.from_numpy(u)))
+    np.testing.assert_array_equal(dec.numpy(), np.asarray(jdec))
+
+
 def test_zero_fault_helpers_match_reference():
     from repro.core import codec as jcodec
     from repro.core import faults as jfaults
@@ -525,7 +578,6 @@ def _reference_steps(out_path):
     mesh = jdist.make_worker_mesh((W,), ("pod",))
     model = JToyMLP(4, 64)
     params = _jax_params()
-    batch = model.batch(jax.random.PRNGKey(1), n=4 * W)
     out = {}
     for case in STEP_CASES:
         dcfg = jdist.DistConfig(worker_axes=("pod",), **WIRE,
@@ -533,13 +585,21 @@ def _reference_steps(out_path):
         init_state, step_fn = jdist.make_train_step(model, jsgd(0.05), dcfg,
                                                     mesh)
         state, jstep, losses = init_state(params), jax.jit(step_fn), []
-        for _ in range(3):
+        jlocal = (jax.jit(jdist.make_local_step(model, dcfg, mesh))
+                  if dcfg.local_steps > 1 else None)
+        for i in range(3):
+            batch = model.batch(jax.random.PRNGKey(_batch_key(case, i)),
+                                n=4 * W)
+            if _local_at(case, i):
+                state, _ = jlocal(state, batch)
+                continue
             state, (loss, _) = jstep(state, batch)
             losses.append(float(loss))
         out[f"{case}/loss"] = np.asarray(losses)
         for i, leaf in enumerate(jax.tree.leaves(state.params)):
             out[f"{case}/param{i}"] = np.asarray(leaf)
-        for name in ("h", "hbar"):
+        names = ("h", "hbar") + (("acc",) if dcfg.local_steps > 1 else ())
+        for name in names:
             for i, a in enumerate(_state_leaves(getattr(state.artemis,
                                                         name))):
                 out[f"{case}/{name}{i}"] = a
@@ -566,7 +626,6 @@ def reference_steps(tmp_path_factory):
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_three_steps_match_reference(reference_steps, case):
     jp = _jax_params()
-    jbatch = JToyMLP(4, 64).batch(jax.random.PRNGKey(1), n=4 * W)
     model = ToyMLP(4, 64)
     dcfg = tdist.DistConfig(**WIRE, **_case_kw(case, tfaults))
     params = convert.toy_params(_as_numpy(jp), device="cpu")
@@ -575,9 +634,16 @@ def test_three_steps_match_reference(reference_steps, case):
     init_state, step_fn = tdist.make_train_step(
         model, topt.sgd(0.05), dcfg, W, device="cpu",
         noise=JaxMeshReplay(dcfg.seed, W, shape))
-    batch = {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
+    local_fn = (tdist.make_local_step(model, dcfg, W)
+                if dcfg.local_steps > 1 else None)
     state, losses = init_state(params), []
-    for _ in range(3):
+    for i in range(3):
+        jbatch = JToyMLP(4, 64).batch(
+            jax.random.PRNGKey(_batch_key(case, i)), n=4 * W)
+        batch = {k: torch.from_numpy(np.array(v)) for k, v in jbatch.items()}
+        if _local_at(case, i):
+            state, _ = local_fn(state, batch)
+            continue
         state, (loss, _) = step_fn(state, batch)
         losses.append(float(loss))
     ref = reference_steps
@@ -590,13 +656,16 @@ def test_three_steps_match_reference(reference_steps, case):
     np.testing.assert_allclose(flat, flat_ref, rtol=0, atol=1e-4)
     np.testing.assert_array_equal(state.artemis.prev_active.numpy(),
                                   ref[f"{case}/prev_active"])
+    def flat(name):
+        x = getattr(state.artemis, name)
+        x = x if isinstance(x, list) else [x]
+        return (np.concatenate([a.numpy().ravel() for a in x]),
+                np.concatenate([ref[f"{case}/{name}{i}"].ravel()
+                                for i in range(len(x))]))
+    if dcfg.local_steps > 1:
+        # step 2's gradients, at parameters held to the bars above
+        assert_mostly_close(*flat("acc"), rtol=1e-4, atol=1e-6, frac=1e-3)
     if dcfg.memory:
-        def flat(name):
-            x = getattr(state.artemis, name)
-            x = x if isinstance(x, list) else [x]
-            return (np.concatenate([a.numpy().ravel() for a in x]),
-                    np.concatenate([ref[f"{case}/{name}{i}"].ravel()
-                                    for i in range(len(x))]))
         assert_mostly_close(*flat("h"), rtol=1e-4, atol=1e-6)
         # an entry of hbar sums W workers' levels
         assert_mostly_close(*flat("hbar"), rtol=1e-4, atol=1e-6,

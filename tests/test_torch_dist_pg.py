@@ -14,10 +14,13 @@ simulated axis's batched one does.
 
 Tolerances: rank 0's parameters, h and hbar equal the simulated axis's bit
 for bit on the pipelined and sequential rings and on the leaf wire, to
-1e-5 on psum (``all_reduce`` adds in its own order); the bytes a rank sends
-equal (W - 1) times the codec's wire bytes a step, and the telemetry's
-``wire_bytes`` the simulated axis's; a closed peer makes the others fail
-within the subprocess's timeout.
+1e-5 on psum (``all_reduce`` adds in its own order); with ``local_steps =
+2`` (``make_local_step`` between the communicating steps) the same, and
+the accumulator too (the simulated local steps are held to the
+reference's in ``test_torch_dist.py``); the bytes a rank sends equal (W - 1) times the
+codec's wire bytes a communicating step (nothing in a local step), and the
+telemetry's ``wire_bytes`` the simulated axis's; a closed peer makes the
+others fail within the subprocess's timeout.
 """
 import os
 import subprocess
@@ -39,12 +42,18 @@ WIRE = dict(s=3, bucket_bytes=4096, max_buckets=8, bucket_row=64)
 CASES = {"pipelined": dict(reduce_impl="pipelined", telemetry=True),
          "sequential": dict(reduce_impl="sequential"),
          "psum": dict(reduce_impl="psum"),
-         "leaf": dict(wire="leaf", p_participation=0.5)}
+         "leaf": dict(wire="leaf", p_participation=0.5),
+         "local": dict(local_steps=2)}
 TIMEOUT = 120
 
 
 def _dcfg(case):
     return tdist.DistConfig(variant="artemis", **WIRE, **CASES[case])
+
+
+def _communicates(dcfg, i):
+    """Whether step i of a run communicates (the train CLI's schedule)."""
+    return (i + 1) % dcfg.local_steps == 0
 
 
 class NpzMeshNoise:
@@ -112,17 +121,24 @@ def _rank(rank, world, npz, out_dir, mode):
             recorded.append({k: v.clone() for k, v in res[0].items()})
             return res
 
+        dcfg = _dcfg(case)
         init_state, step_fn = dist_pg.make_train_step(
-            model, topt.sgd(0.05), _dcfg(case), device="cpu",
+            model, topt.sgd(0.05), dcfg, device="cpu",
             noise=NpzMeshNoise(data, case, "cpu"), grad_fn=grad_fn)
+        local_fn = (dist_pg.make_local_step(model, dcfg, grad_fn=grad_fn)
+                    if dcfg.local_steps > 1 else None)
         state, losses, obs = init_state(params), [], []
-        for _ in range(STEPS):
+        for i in range(STEPS):
+            if not _communicates(dcfg, i):
+                state, _ = local_fn(state, rows)    # this rank's own loss
+                continue
             state, (loss, metrics) = step_fn(state, rows)
             losses.append(float(loss))
             if "obs" in metrics:
                 obs.append({k: float(v) for k, v in metrics["obs"].items()})
         out[case] = {"params": state.params, "h": state.artemis.h,
-                     "hbar": state.artemis.hbar, "grads": recorded,
+                     "hbar": state.artemis.hbar, "acc": state.artemis.acc,
+                     "grads": recorded,
                      "losses": losses, "obs": obs,
                      "bytes_sent": step_fn.ring.bytes_sent,
                      "staged": step_fn.ring.staged}
@@ -212,8 +228,13 @@ def _simulated(data, case, outs):
     init_state, step_fn = tdist.make_train_step(
         model, topt.sgd(0.05), dcfg, W, device="cpu",
         noise=JaxMeshReplay(dcfg.seed, W, shape), grad_fn=grad_fn)
+    local_fn = (tdist.make_local_step(model, dcfg, W, grad_fn=grad_fn)
+                if dcfg.local_steps > 1 else None)
     state, obs = init_state(params), []
-    for _ in range(STEPS):
+    for i in range(STEPS):
+        if not _communicates(dcfg, i):
+            state, _ = local_fn(state, batch)
+            continue
         state, (_, metrics) = step_fn(state, batch)
         obs.append(metrics.get("obs"))
     return state, obs
@@ -232,6 +253,9 @@ def test_rank0_equals_the_simulated_axis(ranks, case):
     pairs += list(zip(_leaves(r0["hbar"]), _leaves(state.artemis.hbar)))
     pairs += [(a[0], b[0]) for a, b in zip(_leaves(r0["h"]),
                                            _leaves(state.artemis.h))]
+    if _dcfg(case).local_steps > 1:
+        pairs += [(a[0], b[0]) for a, b in zip(_leaves(r0["acc"]),
+                                               _leaves(state.artemis.acc))]
     for a, b in pairs:
         if case == "psum":
             torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
@@ -250,7 +274,8 @@ def test_rank0_equals_the_simulated_axis(ranks, case):
             assert a["mesh_active"] == float(b["mesh_active"]) == W
 
 
-@pytest.mark.parametrize("case", ["pipelined", "sequential", "leaf"])
+@pytest.mark.parametrize("case", ["pipelined", "sequential", "leaf",
+                                  "local"])
 def test_bytes_per_hop_are_the_codec_wire_bytes(ranks, case):
     data, outs = ranks
     _, params, _ = _setup(data)
@@ -264,9 +289,10 @@ def test_bytes_per_hop_are_the_codec_wire_bytes(ranks, case):
         per_hop = sum(sum(dcfg.wire_codec(tdist.leaf_row(p.shape))
                           .wire_bytes(tuple(p.shape)).values())
                       for p in plist)
+    comm = sum(_communicates(dcfg, i) for i in range(STEPS))
     for o in outs:
         assert o[case]["staged"] is False            # gloo on CPU tensors
-        assert o[case]["bytes_sent"] == STEPS * (W - 1) * per_hop
+        assert o[case]["bytes_sent"] == comm * (W - 1) * per_hop
     if outs[0][case]["obs"]:
         assert outs[0][case]["obs"][0]["wire_bytes"] == W * (W - 1) * per_hop
 

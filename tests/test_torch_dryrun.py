@@ -5,9 +5,11 @@ on the CPU.
 ``ShapeDtypeStruct`` shapes and dtypes, the decode cache included.  The dry
 run of two reduced configs (a train step over the Artemis wire at W = 2, a
 decode step) counts exactly the FLOPs that ``FlopCounterMode`` counts on
-real CPU tensors of the same shapes, and its parameter bytes are the
-reference's ``count_params`` times the parameter dtype's size.  The
-live-bytes tracker is held to a hand-counted peak.
+real CPU tensors of the same shapes, and its parameter bytes are
+``count_params`` (the port's, equal to the reference's) times the
+parameter dtype's size.  The live-bytes tracker is held to a hand-counted
+peak.  Rematerialisation (``remat``) lowers a deep train step's peak and
+adds a forward's FLOPs; the overrides reach every combo of ``--all``.
 """
 import jax
 import numpy as np
@@ -21,6 +23,7 @@ from repro.models.model import build_model as jbuild
 from repro_torch import configs
 from repro_torch.core import dist
 from repro_torch.launch import dryrun, report
+from repro_torch.launch import roofline as troofline
 from repro_torch.models.model import build_model, flatten_params
 from repro_torch.optim import sgd
 
@@ -97,7 +100,8 @@ def test_dry_run_counts_the_real_step(arch, shape, dist_variant):
     jparams = jax.eval_shape(lambda: jbuild(jcfg).init(
         jax.random.PRNGKey(0)))
     itemsize = np.dtype(jcfg.param_dtype).itemsize
-    assert rec["param_bytes"] == jroofline.count_params(jparams) * itemsize
+    assert troofline.count_params(params) == jroofline.count_params(jparams)
+    assert rec["param_bytes"] == troofline.count_params(params) * itemsize
     assert rec["param_bytes"] == sum(p.numel() * p.element_size()
                                      for p in params.values())
     assert rec["peak_bytes"] >= rec["param_bytes"] + rec["artemis_bytes"]
@@ -106,6 +110,51 @@ def test_dry_run_counts_the_real_step(arch, shape, dist_variant):
     for term in ("compute_s", "memory_s"):
         assert rec[term] > 0
     assert rec["dominant"] in ("compute", "memory", "wire")
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "recurrentgemma-2b",
+                                  "whisper-tiny"])
+def test_remat_lowers_a_deep_train_peak(arch):
+    """At 12 layers (the uniform stack, the pattern groups, the encoder):
+    remat frees every layer's activations between forward and backward,
+    and recomputes the forward's FLOPs; the dots policy recomputes no
+    product."""
+    def run(**over):
+        return dryrun.lower_one(
+            arch, "train_4k", "none", batch=4, seq=128, reduced=True,
+            cfg_overrides={"n_layers": 12, "enc_layers": 12, **over})
+    off = run(remat=False)
+    full = run(remat=True, remat_policy=None)
+    dots = run(remat=True, remat_policy="dots_saveable")
+    assert full["peak_bytes"] < 0.6 * off["peak_bytes"], (full, off)
+    assert dots["peak_bytes"] < off["peak_bytes"]
+    assert off["flops"] < full["flops"] < 1.5 * off["flops"]
+    assert dots["flops"] == off["flops"]
+
+
+def test_overrides_parse_and_reach_every_combo(monkeypatch):
+    assert dryrun._parse_overrides(["remat=False", "remat_policy=None",
+                                    "n_layers=2", "q_chunk=64"]) == {
+        "remat": False, "remat_policy": None, "n_layers": 2, "q_chunk": 64}
+    assert dryrun._parse_overrides(["remat=True"]) == {"remat": True}
+    cmds = []
+
+    class Done:
+        def __init__(self, cmd, **_):
+            cmds.append(cmd)
+
+        def poll(self):
+            return 0
+
+        def communicate(self):
+            return ("", None)
+
+    monkeypatch.setattr(dryrun.subprocess, "Popen", Done)
+    monkeypatch.setattr(dryrun, "_combos",
+                        lambda workers: iter([("starcoder2-7b", "train_4k",
+                                               "none")]))
+    dryrun.run_all(1, 8, cfg_override=["remat=False"])
+    assert cmds[0][-2:] == ["--cfg-override", "remat=False"]
 
 
 def test_live_bytes_tracks_a_hand_counted_peak():

@@ -17,7 +17,12 @@ Tolerances:
     steps) against the reference's on one device: losses to rtol 1e-5,
     parameters to atol 1e-6;
   * resuming from a checkpoint: bit for bit with the run that did not
-    stop.
+    stop, over ranks too;
+  * the CLI over 2 gloo ranks (``--ranks 2``) against the simulated W = 2
+    run: the logged losses to 2e-4 (they are rounded to 4 decimals), rank
+    0's parameters, adam moments and hbar, and each rank's h against the
+    simulated worker's, to rtol 1e-4, atol 1e-6 (a rank's matmul may
+    round otherwise than the vmapped one; measured: bit for bit).
 
 The whole-step reference needs 4 CPU devices, fixed when JAX starts, so it
 runs once per module in a subprocess: this file re-invokes itself with
@@ -46,7 +51,8 @@ from repro_torch import convert, experiments
 from repro_torch.checkpoint import checkpointer
 from repro_torch.core import dist as tdist
 from repro_torch.data import synthetic as tsyn
-from repro_torch.data.pipeline import Batches
+from repro_torch.data.pipeline import Batches, ShardedBatches
+from repro_torch.kernels import KERNELS
 from repro_torch.launch import serve, train
 from repro_torch.models.model import build_model, flatten_params
 from repro_torch.obs import events as tevents
@@ -293,6 +299,8 @@ def test_train_cli_events_and_log_file(tmp_path):
     spans = {e["name"] for e in evs if e["ev"] == "span"}
     assert spans == {"train/compile+first_step", "train/steady_steps"}
     assert json.loads(log_file.read_text()) == logs
+    # the run's kernel launches: none on the CPU (the plain versions)
+    assert evs[-1]["kernel_launches"] == {k.__name__: 0 for k in KERNELS}
 
 
 def test_train_cli_resume_is_bit_for_bit(tmp_path):
@@ -313,6 +321,80 @@ def test_train_cli_resume_is_bit_for_bit(tmp_path):
     assert any(k.startswith("opt_state/m/") for k in arrays[0].files)
     for k in arrays[0].files:
         np.testing.assert_array_equal(arrays[0][k], arrays[1][k], err_msg=k)
+
+
+def _final(ckpt_dir):
+    step = checkpointer.latest_step(str(ckpt_dir))
+    return np.load(ckpt_dir / f"step_{step:08d}" / "arrays.npz")
+
+
+@pytest.fixture
+def one_thread_ranks(monkeypatch):
+    """Spawned ranks start with one intra-op thread, as this module runs
+    (they read the environment when torch starts)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
+
+@pytest.mark.parametrize("extra", [(), ("--local-steps", "2")])
+def test_train_cli_ranks_equal_the_simulated_workers(tmp_path, extra,
+                                                     one_thread_ranks):
+    base = ["--dist", "artemis", *extra]
+    sim = _train(*base, "--workers", "2", "--ckpt-dir", str(tmp_path / "s"))
+    pg = _train(*base, "--ranks", "2", "--ckpt-dir", str(tmp_path / "r"))
+    assert [r["step"] for r in pg] == [r["step"] for r in sim]
+    for a, b in zip(pg, sim):
+        assert abs(a["loss"] - b["loss"]) <= 2e-4, (pg, sim)
+    ref = _final(tmp_path / "s")
+    ranks = [_final(tmp_path / "r" / f"rank{r}") for r in range(2)]
+    assert sorted(ranks[0].files) == sorted(ref.files)
+    for k in ref.files:
+        if k.startswith("artemis/") and ref[k].ndim and k != "artemis/hbar":
+            for r, got in enumerate(ranks):          # per-worker state
+                np.testing.assert_allclose(got[k][0], ref[k][r], rtol=1e-4,
+                                           atol=1e-6, err_msg=k)
+        else:
+            np.testing.assert_allclose(ranks[0][k], ref[k], rtol=1e-4,
+                                       atol=1e-6, err_msg=k)
+
+
+def test_train_cli_ranks_resume_is_bit_for_bit(tmp_path, one_thread_ranks):
+    """Over 2 ranks: 2 steps, a checkpoint per rank, then 2 more resumed,
+    against 4 straight; each rank's final checkpoint holds the same
+    bits."""
+    base = ["--dist", "artemis", "--ranks", "2"]
+    _train(*base, "--ckpt-dir", str(tmp_path / "a"))
+    _train(*base, "--ckpt-dir", str(tmp_path / "b"), steps=2)
+    logs = _train(*base, "--ckpt-dir", str(tmp_path / "b"), "--resume",
+                  steps=2)
+    assert logs[0]["step"] == 3
+    for r in range(2):
+        a, b = (_final(tmp_path / d / f"rank{r}") for d in ("a", "b"))
+        assert int(a["step"]) == int(b["step"]) == 4
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("extra,msg", [
+    (("--ranks", "2"), "needs a wire"),
+    (("--ranks", "3", "--dist", "artemis"), "does not split"),
+    (("--ranks", "2", "--workers", "4", "--dist", "artemis"), "sets W"),
+    (("--mesh", "4x2"), "A14")])
+def test_train_cli_refuses(extra, msg, capsys):
+    with pytest.raises(SystemExit):
+        _train(*extra)
+    assert msg in capsys.readouterr().err
+
+
+def test_sharded_batches_are_the_simulated_workers_blocks():
+    stream = tsyn.TokenStream(tsyn.TokenStreamConfig(vocab=32, seq_len=8,
+                                                     batch=6), device="cpu")
+    whole = Batches(stream, "cpu").batch_at(3)
+    split = tdist._split(whole, 3)
+    for r in range(3):
+        got = ShardedBatches(stream, "cpu", rank=r, world=3).batch_at(3)
+        assert torch.equal(got["tokens"], split["tokens"][r])
+    with pytest.raises(ValueError, match="does not split"):
+        ShardedBatches(stream, "cpu", rank=0, world=4).batch_at(0)
 
 
 def test_serve_cli_and_generate(capsys):
@@ -359,14 +441,17 @@ def _without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("entry", ["train", "serve", "stream", "batches",
-                                   "init_cache"])
+@pytest.mark.parametrize("entry", ["train", "train_ranks", "serve",
+                                   "stream", "batches", "init_cache"])
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, entry):
     _without_cuda(monkeypatch)
     scfg = tsyn.TokenStreamConfig(vocab=16, seq_len=4, batch=2)
     calls = {
         "train": lambda: train.main(["--arch", ARCH, "--reduced",
                                      "--steps", "1"]),
+        "train_ranks": lambda: train.main(["--arch", ARCH, "--reduced",
+                                           "--dist", "artemis", "--batch",
+                                           "4", "--ranks", "2"]),
         "serve": lambda: serve.main(["--arch", ARCH, "--reduced"]),
         "stream": lambda: tsyn.TokenStream(scfg),
         "batches": lambda: Batches(tsyn.TokenStream(scfg, device="cpu")),
