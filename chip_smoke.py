@@ -117,7 +117,7 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
 21. wide faulted: the wide bucketed step under bit flips and scrubbing,
    beside phase 8's clean step;
 22. pg ring: whether gloo's send and receive move a CUDA tensor (two
-   ranks), then W = 4 ranks of ``core/dist_pg.py`` on the card (gloo,
+   ranks, ``_gloo_cuda_probe``), then W = 4 ranks of ``core/dist_pg.py`` on the card (gloo,
    payloads staged through pinned host memory), ToyMLP(12, 1024), 3
    steps of each reduce_impl: rank 0 against the simulated axis over the
    same draws and the ranks' own gradients (pipelined and sequential bit
@@ -160,7 +160,11 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
 27. dry run: ``launch/dryrun.py`` on fake tensors for lm-100m's train step
    (phase 26's W, batch and optimizer) and starcoder2-7b's decode step
    against phase 25's 64-token cache, without device memory; each peak
-   estimate beside phase 25's and 26's measured peak;
+   estimate beside phase 25's and 26's measured peak; then the multi-pod
+   row (``MULTIPOD_ROW``: starcoder2-7b train_4k with artemis, one of 512
+   ranks of a fake process group), run in a process of its own started
+   after the build, beside the card's phases: one rank's bytes, FLOPs and
+   collective bytes by mesh axis, the process never touching the card;
 28. bench: ``python -m repro_torch.bench --fast`` in a subprocess on the
    card (every suite: the paper's figures, the kernels, the sweep engine
    and the mesh wire, the fault defenses), exit 0, every kernel row
@@ -181,14 +185,24 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
    device memory freed first), 3 steps with local_steps = 2: the losses
    finite and falling, and bucket_acc launched W times a rank a
    communicating step (the ranks' counts, summed in the event log's
-   ``run_end``).
+   ``run_end``);
+32. mesh train (after phase 31): which of the collectives a DTensor mesh
+   issues (``MESH_PROBE_OPS``, in their functional form, and the c10d
+   forms) gloo runs on CUDA tensors, each on 2 ranks of its own, recorded
+   (ROADMAP C6: the CLI's mesh takes nccl on CUDA).  Then
+   ``launch.train.main --mesh 1x1`` (nccl, one card a rank) on lm-100m
+   at full width, artemis, batch 16 x 256, 3 steps: losses finite,
+   falling and within rtol 1e-4 of ``--ranks 1``'s (the same worker
+   unsharded), bucket_acc launched ranks x W a step (the ranks' counts),
+   its bucketed layout the stack held to the plain bucket_acc, and the
+   steady step time and largest peak on a rank of both runs.
 
 The simulator's path (phases 4 and 5), the fault path (phases 13 to 15),
 the telemetry grid (17), the mesh's (phases 7 and 8), the leaf wire's
 (18, 19), the mesh's fault path (20, 21) and the compression API's (phase
 10) and the LM paths (24 to 26, 30) are each driven with every launch count
-set to 0 just before and read just after; the pg ring's ranks (22, 31)
-count their own.  The kernels line adds the simulator's, the fault path's and the
+set to 0 just before and read just after; the ranks of the pg ring, pg
+train and mesh train (22, 31, 32) count their own.  The kernels line adds the simulator's, the fault path's and the
 telemetry grid's launches of B1, B2 and the worker sum, and every mesh
 and LM path's of B3 and B4.
 
@@ -299,6 +313,15 @@ LM_TRAIN_STEPS = 10
 REMAT_FALCON_B, REMAT_FALCON_SEQ = 1, 2048
 # the train CLI over ranks: lm-100m, W = 4 gloo ranks on the card
 PG_TRAIN_RANKS, PG_TRAIN_STEPS, PG_TRAIN_LOCAL = 4, 3, 2
+# the sharded mesh (A14): lm-100m on --mesh 2x2 (4 gloo ranks, W = 2
+# workers of 2 model ranks) where gloo runs the mesh's collectives on CUDA
+# tensors, else --mesh 1x1 over nccl; against --ranks W, the same workers
+# unsharded; the collectives DTensor issues there, probed one launch each
+MESH_TRAIN_STEPS = 3
+MESH_PROBE_OPS = ("all_gather_into_tensor", "reduce_scatter_tensor",
+                  "all_reduce")
+# the multi-pod dry run's row (A15), at full width, in a process of its own
+MULTIPOD_ROW = ("starcoder2-7b", "train_4k", "multipod", "artemis")
 
 
 class SmokeFailure(Exception):
@@ -1930,25 +1953,80 @@ def _pg_rank(rank, world, out_dir, device):
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def _gloo_cuda_probe(rank, world, out_dir):
-    """Does gloo's send and receive move a CUDA tensor? Rank 0 sends a
-    known CUDA tensor to rank 1, which receives into a CUDA tensor."""
+def _gloo_cuda_probe(rank, world, out_dir, what="send"):
+    """Does gloo move a CUDA tensor?  ``what``: "send" (rank 0 sends a
+    known CUDA tensor to rank 1, which receives into a CUDA tensor);
+    "c10d" (``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
+    ``all_reduce`` of CUDA tensors); or one of ``MESH_PROBE_OPS`` in the
+    functional form that DTensor issues (``_c10d_functional.<op>``).  A
+    rank that dies leaves no result file."""
     import torch
     import torch.distributed as tdist
-    x = torch.arange(1024, dtype=torch.float32, device="cuda")
+    import torch.distributed._functional_collectives as fc
+    x = torch.arange(1024, dtype=torch.float32, device="cuda") + rank
+    group = tdist.group.WORLD
     res = {}
     try:
-        if rank == 0:
-            tdist.send(x, 1)
-        else:
-            y = torch.zeros_like(x)
-            tdist.recv(y, 0)
+        if what == "send":
+            if rank == 0:
+                tdist.send(x, 1)
+            else:
+                y = torch.zeros_like(x)
+                tdist.recv(y, 0)
+                torch.cuda.synchronize()
+                res["equal"] = bool(torch.equal(x, y))
+        elif what == "c10d":
+            y = torch.empty(world * 1024, device="cuda")
+            tdist.all_gather_into_tensor(y, x)
+            z = torch.empty(1024 // world, device="cuda")
+            tdist.reduce_scatter_tensor(z, x)
+            w = x.clone()
+            tdist.all_reduce(w)
             torch.cuda.synchronize()
-            res["equal"] = bool(torch.equal(x, y))
+            res["equal"] = bool(torch.equal(w, 2 * torch.arange(
+                1024, device="cuda") + world - 1))
+        else:
+            out = {"all_gather_into_tensor":
+                   lambda: fc.all_gather_tensor(x, 0, group),
+                   "reduce_scatter_tensor":
+                   lambda: fc.reduce_scatter_tensor(x, "sum", 0, group),
+                   "all_reduce": lambda: fc.all_reduce(x, "sum", group)}[
+                what]()
+            torch.cuda.synchronize()
+            res["numel"] = int(out.numel())
         res["ok"] = True
     except RuntimeError as exc:
         res = {"ok": False, "error": f"{type(exc).__name__}: {exc}"[:300]}
-    torch.save(res, os.path.join(out_dir, f"probe{rank}.pt"))
+    torch.save(res, os.path.join(out_dir, f"probe_{what}{rank}.pt"))
+
+
+def _probe(whats, out_dir):
+    """Each probe of ``_gloo_cuda_probe`` in ``whats`` on 2 gloo ranks of
+    its own, all at once: {what: the ranks' results, {"ok": False,
+    "exit": code} for a rank that died}."""
+    import threading
+    import torch
+    from repro_torch.core import dist_pg
+    codes = {}
+
+    def run(what):
+        codes[what] = dist_pg.launch(_gloo_cuda_probe, 2, (out_dir, what),
+                                     timeout=60)
+
+    threads = [threading.Thread(target=run, args=(w,)) for w in whats]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    out = {}
+    for what in whats:
+        out[what] = []
+        for r, code in enumerate(codes[what]):
+            path = os.path.join(out_dir, f"probe_{what}{r}.pt")
+            out[what].append(torch.load(path) if code == 0
+                             and os.path.exists(path)
+                             else {"ok": False, "exit": code})
+    return out
 
 
 def pg_phase(dev):
@@ -1967,10 +2045,7 @@ def pg_phase(dev):
     out = {}
     try:
         t0 = time.perf_counter()
-        codes = dist_pg.launch(_gloo_cuda_probe, 2, (out_dir,), timeout=30)
-        probe = [torch.load(os.path.join(out_dir, f"probe{r}.pt"))
-                 if code == 0 else {"ok": False, "exit": code}
-                 for r, code in enumerate(codes)]
+        probe = _probe(["send"], out_dir)["send"]
         takes = all(p.get("ok") for p in probe) and probe[1].get("equal")
         out["gloo_takes_cuda"] = bool(takes)
         log(f"pg ring: gloo send/recv of a CUDA tensor: "
@@ -2744,6 +2819,142 @@ def lm_pg_train_phase(dev):
             "layout": layout, "seconds": secs}
 
 
+def _train_events(argv, path):
+    """``launch.train.main`` on lm-100m at full width with ``argv`` and an
+    event log at ``path``: (logs, events, seconds)."""
+    from repro_torch import experiments as ex
+    from repro_torch.launch import train
+    from repro_torch.obs import events
+    t0 = time.perf_counter()
+    logs = _quiet(train.main, [
+        "--arch", "lm-100m", "--steps", str(MESH_TRAIN_STEPS), "--batch",
+        str(LM_TRAIN_BATCH), "--seq", str(LM_TRAIN_SEQ), "--dist", "artemis",
+        "--log-every", "1", "--events", path, "--device", "cuda", *argv],
+        config=ex.lm_config(full_100m=True))
+    secs = time.perf_counter() - t0
+    evs = events.read_events(path)
+    check(not events.validate_events(evs), f"mesh train {argv}: invalid "
+                                           f"events")
+    return logs, evs, secs
+
+
+def mesh_train_phase(dev):
+    """A14 on the card.  First the probe, a record of gloo's fault
+    (ROADMAP C6): which of the collectives a DTensor mesh issues
+    (``MESH_PROBE_OPS``, functional) gloo runs on CUDA tensors, each on 2
+    ranks of its own, and their c10d forms.  The CLI's mesh takes nccl on
+    CUDA, one card a rank, so on this one card ``launch.train.main --mesh
+    1x1`` on lm-100m at full width, artemis, adam, batch 16 x 256,
+    MESH_TRAIN_STEPS steps: its losses finite and falling and within rtol
+    1e-4 of ``--ranks 1`` (the same worker, unsharded); bucket_acc
+    launched ranks x W a step (the ranks' counts, summed in ``run_end``);
+    its bucketed layout; the steady step time and the largest peak on a
+    rank of both."""
+    import gc
+    import shutil
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()            # the ranks need the card's memory
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_mesh_train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        probe = _probe(["c10d"] + list(MESH_PROBE_OPS), out_dir)
+        res["probe_s"] = time.perf_counter() - t0
+        verdict = {w: all(p.get("ok") for p in probe[w])
+                   and probe[w][-1].get("equal", True) for w in probe}
+        refused = sorted(f"_c10d_functional.{op}" for op in MESH_PROBE_OPS
+                         if not verdict[op])
+        res["probe"] = {"gloo_cuda": verdict, "refused": refused,
+                        "ranks": probe}
+        log(f"mesh train probe: gloo on CUDA tensors: c10d collectives "
+            f"{'run' if verdict['c10d'] else 'fail'}; functional "
+            + ", ".join(f"{op} {'runs' if verdict[op] else 'fails'}"
+                        for op in MESH_PROBE_OPS)
+            + f" ({probe}); {res['probe_s']:.1f} s")
+        shape, backend = "1x1", "nccl"  # nccl: one card a rank
+        d, m = (int(x) for x in shape.split("x"))
+        runs = {}
+        for name, argv in (
+                ("mesh", ["--mesh", shape]),
+                ("ranks", ["--ranks", str(d)])):
+            gc.collect()
+            torch.cuda.empty_cache()
+            logs, evs, secs = _train_events(
+                argv, os.path.join(out_dir, f"{name}.jsonl"))
+            steady = sum(e["dur_s"] for e in evs if e["ev"] == "span"
+                         and e["name"] == "train/steady_steps")
+            runs[name] = {"losses": [r["loss"] for r in logs],
+                          "launches": evs[-1]["kernel_launches"][
+                              "bucket_acc"],
+                          "peak_bytes": evs[-1]["device_peak_bytes"],
+                          "ms_per_step": 1e3 * steady
+                          / (MESH_TRAIN_STEPS - 1),
+                          "layout": evs[0]["config"]["layout"],
+                          "seconds": secs}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    mesh, ranks = runs["mesh"], runs["ranks"]
+    losses = mesh["losses"]
+    check(len(losses) == MESH_TRAIN_STEPS and all(map(math.isfinite, losses))
+          and losses[-1] < losses[0], f"mesh train: losses {losses}")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ranks["losses"]))
+    check(worst <= 1e-4, f"mesh train: losses {losses} against --ranks "
+                         f"{d}'s {ranks['losses']} (rtol {worst:.3g})")
+    want = d * m * d * MESH_TRAIN_STEPS
+    check(mesh["launches"] == want,
+          f"mesh train: bucket_acc launched {mesh['launches']} times by the "
+          f"ranks, expected {want} (ranks x W a step)")
+    log(f"mesh train lm-100m: --mesh {shape} over {backend} ({d * m} "
+        f"ranks, W = {d}), {MESH_TRAIN_STEPS} steps of batch "
+        f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: losses {losses}, --ranks {d} "
+        f"{ranks['losses']} (largest rtol {worst:.3g}); bucket_acc "
+        f"{mesh['launches']} launches; ms per steady step "
+        f"{mesh['ms_per_step']:.1f} (--ranks {d}: "
+        f"{ranks['ms_per_step']:.1f}); largest peak on a rank "
+        f"{mesh['peak_bytes']} bytes (--ranks {d}: {ranks['peak_bytes']}); "
+        f"{mesh['seconds']:.1f} s and {ranks['seconds']:.1f} s with the "
+        f"ranks' start")
+    return {**res, "mesh": shape, "backend": backend, "runs": runs,
+            "launches": mesh["launches"], "layout": mesh["layout"],
+            "rtol": worst}
+
+
+def _multipod_dry_run(out_path):
+    """MULTIPOD_ROW of the dry run in a process of its own (its fake
+    process group of 512 ranks is the process's default group); writes
+    the record and whether the process touched the card."""
+    sys.path.insert(0, SRC)
+    import torch
+    from repro_torch.launch import dryrun
+    arch, shape, mesh, dv = MULTIPOD_ROW
+    t0 = time.perf_counter()
+    rec = dryrun.lower_mesh(arch, shape, mesh, dv)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["cuda_initialized"] = torch.cuda.is_initialized()
+    rec["cuda_bytes"] = (torch.cuda.max_memory_allocated()
+                         if torch.cuda.is_initialized() else 0)
+    with open(out_path, "w") as fh:
+        json.dump(rec, fh)
+
+
+def start_multipod_dry_run():
+    """Start ``_multipod_dry_run`` (host work only), to overlap the card's
+    phases; ``dryrun_phase`` joins it."""
+    import multiprocessing
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_multipod")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "row.json")
+    if os.path.exists(path):
+        os.remove(path)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_multipod_dry_run, args=(path,))
+    proc.start()
+    return proc, path
+
+
 # the kernel rows of ``python -m repro_torch.bench kernel``: every kernel of
 # the kernels line has one (B3 three: out of place, hops 0 and 1)
 BENCH_KERNEL_ROWS = ("b1_fused_memory_update", "b2_ring_sum", "worker_sum",
@@ -2821,11 +3032,14 @@ def analysis_phase():
             "host_syncs": len(syncs)}
 
 
-def dryrun_phase(dev, serve_res, train_res):
+def dryrun_phase(dev, serve_res, train_res, multipod):
     """The dry run on fake tensors of lm-100m's train step (phase 26's W,
     batch, sequence and optimizer) and starcoder2-7b's decode step at phase
     25's batch and 64-token cache: no device memory moves, and each peak
-    estimate stands beside the measured one."""
+    estimate stands beside the measured one.  Then the multi-pod row
+    (``MULTIPOD_ROW``, started with ``start_multipod_dry_run``): one
+    rank's bytes, FLOPs and collective bytes by axis, its process never
+    touching the card."""
     import torch
     from repro_torch.launch import dryrun
     before = torch.cuda.memory_allocated(dev)
@@ -2857,6 +3071,35 @@ def dryrun_phase(dev, serve_res, train_res):
             f"{rec['artemis_bytes']} bytes; compute {rec['compute_s']:.4g} s, "
             f"memory {rec['memory_s']:.4g} s, wire {rec['wire_s']:.4g} s "
             f"({rec['dominant']}); traced in {rec['trace_s']} s")
+    proc, path = multipod
+    t0 = time.perf_counter()
+    proc.join(900)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    check(proc.exitcode == 0 and os.path.exists(path),
+          f"dry run {MULTIPOD_ROW}: exit code {proc.exitcode}")
+    with open(path) as fh:
+        rec = json.load(fh)
+    check(rec["status"] == "ok" and rec["param_bytes"] > 0
+          and rec["artemis_bytes"] > 0 and "pod" in rec["coll_bytes"],
+          f"dry run {MULTIPOD_ROW}: {rec}")
+    check(not rec["cuda_initialized"] and rec["cuda_bytes"] == 0,
+          f"dry run {MULTIPOD_ROW}: its process used the card")
+    out["multipod"] = {k: rec[k] for k in (
+        "param_bytes", "optimizer_bytes", "artemis_bytes", "peak_bytes",
+        "flops", "bytes_accessed", "coll_bytes", "comm_counts", "compute_s",
+        "memory_s", "collective_s", "dominant", "trace_s", "wall_s")}
+    log(f"dry run {' x '.join(MULTIPOD_ROW)}, one of 512 ranks: params "
+        f"{rec['param_bytes']}, optimizer {rec['optimizer_bytes']}, artemis "
+        f"{rec['artemis_bytes']} bytes, peak estimate {rec['peak_bytes']} "
+        f"bytes; {rec['flops']:.4g} FLOPs, {rec['bytes_accessed']:.4g} bytes "
+        f"accessed; collective bytes by axis {json.dumps(rec['coll_bytes'])}"
+        f"; compute {rec['compute_s']:.4g} s, memory {rec['memory_s']:.4g} "
+        f"s, collective {rec['collective_s']:.4g} s ({rec['dominant']}); "
+        f"traced in {rec['trace_s']} s (its process {rec['wall_s']:.1f} s, "
+        f"{time.perf_counter() - t0:.1f} s waited for here); the card "
+        f"untouched")
     log(f"dry run: {secs:.1f} s")
     return {"seconds": secs, **out}
 
@@ -2922,6 +3165,7 @@ def main():
     t_start = time.perf_counter()
     card = card_identity()
     build_phase()
+    multipod = start_multipod_dry_run()     # host work, beside the card's
     fused, ring, wsum = kernel_phase(dev)
     fault_fused, fault_ring = fault_kernel_phase(dev)
     lm_stacks = lm_ring_stacks(dev)
@@ -3052,28 +3296,33 @@ def main():
             ("lm_serve", lm_serve_phase),
             ("lm_train", lm_train_phase),
             ("lm_remat", lambda d: lm_remat_phase(d, lm_res["lm_train"])),
-            ("lm_pg_train", lm_pg_train_phase)):
+            ("lm_pg_train", lm_pg_train_phase),
+            ("lm_mesh_train", mesh_train_phase)):
         reset_launches()                # each LM path on its own
         t_lm = time.perf_counter()
         lm_res[name] = phase(dev)
         lm_secs[name] = time.perf_counter() - t_lm
         lm_l[name] = mesh_counts()
     # the ranks count their own launches
-    lm_l["lm_pg_train"]["bucket_acc"] = lm_res["lm_pg_train"]["launches"]
+    for name in ("lm_pg_train", "lm_mesh_train"):
+        lm_l[name]["bucket_acc"] = lm_res[name]["launches"]
     serve_res, train_res = lm_res["lm_serve"], lm_res["lm_train"]
-    tool_res = {"dryrun": dryrun_phase(dev, serve_res, train_res),
+    tool_res = {"dryrun": dryrun_phase(dev, serve_res, train_res, multipod),
                 "bench": bench_phase(), "analysis": analysis_phase()}
     check(tuple([LM_TRAIN_W] + train_res["layout"]) == lm_stacks["train"],
           f"lm train: its stack {train_res['layout']} at W = {LM_TRAIN_W} "
           f"is not the one held to the plain hop, {lm_stacks['train']}")
-    pg_layout = lm_res["lm_pg_train"]["layout"]
-    check(tuple(pg_layout) == lm_stacks["train"][1:],
-          f"pg train: its ranks' stack {pg_layout} is not the one held to "
-          f"the plain out-of-place bucket_acc, {lm_stacks['train'][1:]}")
+    for name in ("lm_pg_train", "lm_mesh_train"):
+        ranks_layout = lm_res[name]["layout"]
+        check(tuple(ranks_layout) == lm_stacks["train"][1:],
+              f"{name}: its ranks' stack {ranks_layout} is not the one "
+              f"held to the plain out-of-place bucket_acc, "
+              f"{lm_stacks['train'][1:]}")
     check(lm_l["lm_reduced"]["bucket_acc"] > 0
           and lm_l["lm_reduced"]["bucket_ring_sum"] > 0
           and min(lm_l[k]["bucket_acc"] for k in ("lm_train", "lm_remat",
-                                                  "lm_pg_train")) > 0,
+                                                  "lm_pg_train",
+                                                  "lm_mesh_train")) > 0,
           f"an LM path launched B3 or B4 0 times: {lm_l}")
     for k in ("bucket_acc", "bucket_ring_sum"):
         for name in lm_l:

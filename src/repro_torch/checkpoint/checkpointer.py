@@ -16,6 +16,12 @@ step directory is complete, so a process killed mid-save leaves the
 previous checkpoint readable and no temporary file behind a finished save.
 ``restore`` checks the manifest's keys, shapes and dtypes against the
 target tree first and raises one ``ValueError`` listing every mismatch.
+
+On a device mesh a leaf may be a DTensor: ``save`` writes it whole (every
+rank of its mesh joins the gather; ``write=False`` for the ranks that only
+join), and ``restore`` places each leaf back on a mesh, at ``shardings``
+(a tree like ``like`` of ``launch/mesh.NamedSharding``, None for a leaf to
+leave plain) or where a DTensor leaf of ``like`` was placed.
 """
 from __future__ import annotations
 
@@ -72,6 +78,9 @@ def _unflatten(like: Tree, leaves: Dict[str, Any], prefix: str = "") -> Tree:
 
 
 def _host(x) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        x = x.full_tensor()             # a collective over its mesh
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             raise TypeError("bfloat16 tensors have no numpy dtype to save")
@@ -101,12 +110,16 @@ def _atomic_write(path: str, write_fn) -> None:
 
 
 def save(ckpt_dir: str, step: int, tree: Tree,
-         extra: Optional[dict] = None) -> str:
+         extra: Optional[dict] = None, *, write: bool = True) -> str:
     """Save ``tree`` as step ``step`` of ``ckpt_dir``; returns the step's
-    directory.  ``extra`` (JSON-serialisable) rides in the manifest."""
+    directory.  ``extra`` (JSON-serialisable) rides in the manifest.
+    DTensor leaves are gathered whole first; ``write=False`` joins those
+    gathers and writes nothing."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
-    os.makedirs(d, exist_ok=True)
     arrays = {k: _host(v) for k, v in _flatten(tree).items()}
+    if not write:
+        return d
+    os.makedirs(d, exist_ok=True)
 
     def _write_npz(tmp):
         # np.savez appends .npz to a name without it: write to a handle
@@ -182,26 +195,52 @@ def _validate(manifest: dict, flat_like: dict, where: str) -> None:
                          f"target:\n  " + "\n  ".join(problems))
 
 
-def restore(ckpt_dir: str, like: Tree, step: Optional[int] = None) -> Tree:
+def restore(ckpt_dir: str, like: Tree, step: Optional[int] = None,
+            shardings: Optional[Tree] = None) -> Tree:
     """Restore step ``step`` (default: LATEST) into the structure of
     ``like``: a tensor leaf comes back as a tensor on that leaf's device, a
-    numpy leaf as a numpy array, a Python number as one.  Raises
-    ``ValueError`` if the manifest disagrees with ``like`` on keys, shapes
-    or dtypes."""
+    numpy leaf as a numpy array, a Python number as one.  A leaf with a
+    sharding in ``shardings`` (a tree like ``like``; None: none) comes back
+    as a DTensor placed by it, and so does a DTensor leaf of ``like``,
+    where it was placed.  Raises ``ValueError`` if the manifest disagrees
+    with ``like`` on keys, shapes or dtypes."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     flat_like = _flatten(like)
     _validate(read_manifest(ckpt_dir, step), flat_like, d)
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import distribute
+    placed = {}
+    if shardings is not None:
+        placed = {k: v for k, v in _flatten(shardings).items()
+                  if v is not None}
     leaves = {}
     with np.load(os.path.join(d, "arrays.npz"), allow_pickle=False) as data:
         for key, ref in flat_like.items():
             a = data[key]
-            if isinstance(ref, torch.Tensor):
+            if key in placed:
+                dev = (ref.to_local().device if isinstance(ref, DTensor)
+                       else ref.device)
+                leaves[key] = distribute(torch.from_numpy(a).to(dev),
+                                         placed[key])
+            elif isinstance(ref, DTensor):
+                leaves[key] = _redistribute_like(a, ref)
+            elif isinstance(ref, torch.Tensor):
                 leaves[key] = torch.from_numpy(a).to(ref.device)
             elif isinstance(ref, (bool, int, float)):
                 leaves[key] = type(ref)(a.item())
             else:
                 leaves[key] = a
     return _unflatten(like, leaves)
+
+
+def _redistribute_like(a: np.ndarray, ref):
+    """The whole array ``a`` as a DTensor placed as the DTensor ``ref``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ref.device_mesh
+    x = torch.from_numpy(a).to(ref.to_local().device)
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(mesh,
+                                                            ref.placements)

@@ -62,10 +62,16 @@ every worker compresses the identical aggregate with an identical key;
 here it is one compression with the shared uniforms ``u_dwn``.
 
 Randomness enters as tensors from a noise source (``core/noise.py``), in
-place of the reference's ``_round_keys`` chain.  The helpers that place
-arrays on a device mesh (``shard_map_compat``, ``make_worker_mesh``,
-``state_specs``, ``state_shardings``) have no meaning on a simulated axis
-and raise, pointing at ``core/dist_pg.py``; ``grad_specs`` is not taken.
+place of the reference's ``_round_keys`` chain.
+
+The device mesh (a ``torch.distributed`` ``DeviceMesh``, one process a
+rank; ``core/dist_pg.py`` runs the step on it): ``make_worker_mesh``,
+``shard_map_compat`` (partial-manual ``shard_map``: each rank's block
+over the worker axes as a DTensor on the other axes, ``to_inner`` and
+``from_inner``), ``state_specs`` and ``state_shardings`` (the reference's
+rules, as ``launch/mesh.NamedSharding``).  The simulated axis places
+nothing on a mesh; ``grad_specs`` is not taken (the mesh's wire encodes
+whole gradients).
 """
 from __future__ import annotations
 
@@ -159,20 +165,209 @@ class DistConfig:
         return wire.make_codec(name, row, **kw)
 
 
-def _on_a_process_group(name: str) -> Callable:
-    def helper(*_, **__):
-        raise NotImplementedError(
-            f"{name} places arrays on a device mesh, which the simulated "
-            f"worker axis does not have; to run one worker per device, use "
-            f"the torch.distributed ring of core/dist_pg.py")
-    helper.__name__ = name
-    return helper
+# ---------------------------------------------------------------------------
+# the device mesh: one worker per coordinate of the worker axis, each rank a
+# process of a torch.distributed group (launch/mesh.py has the policy)
+# ---------------------------------------------------------------------------
+
+def make_worker_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...],
+                     device_type: Optional[str] = None):
+    """A mesh of ``shape`` named ``axes`` over the default process group
+    (tests and benchmarks that run one worker per rank), on CUDA unless
+    ``device_type`` names another device type."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(default_device(device_type).type, tuple(shape),
+                            mesh_dim_names=tuple(axes))
 
 
-shard_map_compat = _on_a_process_group("shard_map_compat")
-make_worker_mesh = _on_a_process_group("make_worker_mesh")
-state_specs = _on_a_process_group("state_specs")
-state_shardings = _on_a_process_group("state_shardings")
+def inner_axes(mesh, manual_axes: Sequence[str]) -> Tuple[str, ...]:
+    """The mesh's axes other than ``manual_axes``, in mesh order."""
+    return tuple(a for a in mesh.mesh_dim_names if a not in manual_axes)
+
+
+def to_inner(x, mesh, manual_axes: Sequence[str]):
+    """This rank's block of the DTensor ``x`` (on ``mesh``) over the manual
+    axes: a DTensor on the sub-mesh of the other axes with their placements
+    (the plain local tensor when every axis is manual).  A plain tensor is
+    taken as this rank's block already: on the sub-mesh it is replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    inner = inner_axes(mesh, manual_axes)
+    if not isinstance(x, DTensor):
+        if not inner:
+            return x
+        return DTensor.from_local(x, mesh[inner], [Replicate()] * len(inner),
+                                  run_check=False)
+    if not inner:
+        return x.to_local()
+    names = list(mesh.mesh_dim_names)
+    # a gather along a dim other than the first leaves a strided local
+    # block, which some sharded ops (einsum's views) refuse
+    return DTensor.from_local(
+        x.to_local().contiguous(), mesh[inner],
+        [x.placements[names.index(a)] for a in inner], run_check=False)
+
+
+def from_inner(y, mesh, manual_axes: Sequence[str], spec):
+    """The inverse of ``to_inner``: ``y`` (a DTensor on the sub-mesh of the
+    non-manual axes, or a plain tensor) as a DTensor on ``mesh``, split over
+    the manual axes as ``spec`` names them (replicated over those it does
+    not name: the blocks must agree)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.launch.mesh import to_placements
+    names = list(mesh.mesh_dim_names)
+    manual = to_placements(mesh, spec)
+    inner = inner_axes(mesh, manual_axes)
+    if isinstance(y, DTensor):
+        local, placed = y.to_local(), dict(zip(inner, y.placements))
+    else:
+        local, placed = y, {a: Replicate() for a in inner}
+    return DTensor.from_local(
+        local, mesh, [placed[a] if a in placed else manual[i]
+                      for i, a in enumerate(names)], run_check=False)
+
+
+def _is_spec(x) -> bool:
+    from repro_torch.launch.mesh import Spec
+    return isinstance(x, Spec)
+
+
+def map_tree(fn: Callable, tree, *rest, is_leaf=None):
+    """``fn`` over the leaves of a tree of dicts, lists, tuples and
+    dataclasses (``rest``: trees of the same structure, or leaves that
+    stand for a whole subtree)."""
+    leaf = is_leaf or (lambda _: False)
+    if leaf(tree):
+        return fn(tree, *rest)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: map_tree(fn, getattr(tree, f.name),
+                             *[_sub(r, f.name, leaf) for r in rest],
+                             is_leaf=is_leaf)
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *[_sub(r, k, leaf) for r in rest],
+                            is_leaf=is_leaf) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_spec(tree):
+        return type(tree)(map_tree(fn, v, *[_sub(r, i, leaf) for r in rest],
+                                   is_leaf=is_leaf)
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _sub(tree, key, leaf):
+    if leaf(tree) or _is_spec(tree):
+        return tree
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return getattr(tree, key)
+    return tree[key]
+
+
+def shard_map_compat(f: Callable, mesh, in_specs, out_specs,
+                     manual_axes: Sequence[str]) -> Callable:
+    """Partial-manual ``shard_map`` over a ``DeviceMesh``: ``f`` runs on
+    every rank with each DTensor argument cut to this rank's block over
+    ``manual_axes`` (``to_inner``: a DTensor on the sub-mesh of the other
+    axes, whose ops ``f`` then runs sharded; the local tensor when every
+    axis is manual, as ``torch.distributed.tensor.experimental.local_map``
+    hands it).  ``in_specs`` and ``out_specs`` are trees of ``Spec`` over
+    the manual axes, one per argument and output (a ``Spec`` stands for a
+    whole subtree); inputs are first redistributed to them on the manual
+    axes.  As the reference's ``check_vma=False``: an output replicated over
+    a manual axis is trusted to agree there."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import to_placements
+    manual_axes = tuple(manual_axes)
+    names = list(mesh.mesh_dim_names)
+
+    def place(spec, x):
+        if not isinstance(x, DTensor):
+            return to_inner(x, mesh, manual_axes)
+        want = to_placements(mesh, spec)
+        target = [want[i] if a in manual_axes else x.placements[i]
+                  for i, a in enumerate(names)]
+        if tuple(target) != tuple(x.placements):
+            x = x.redistribute(mesh, target)
+        return to_inner(x, mesh, manual_axes)
+
+    def unplace(spec, y):
+        if not isinstance(y, torch.Tensor):
+            return y
+        return from_inner(y, mesh, manual_axes, spec)
+
+    def over(fn, specs, tree):
+        # a Spec leaf of ``specs`` applies to every leaf of its subtree
+        return map_tree(lambda spec, sub: map_tree(
+            lambda t: fn(spec, t), sub), specs, tree, is_leaf=_is_spec)
+
+    def mapped(*args):
+        return over(unplace, out_specs,
+                    f(*over(place, tuple(in_specs), args)))
+
+    return mapped
+
+
+def state_specs(dcfg: Optional[DistConfig], state) -> "TrainState":
+    """The worker-axis specs of a ``TrainState`` (manual axes only): the
+    per-worker stacks split over the worker axes, everything else
+    replicated over them."""
+    from repro_torch.launch.mesh import Spec
+    waxes = tuple(dcfg.worker_axes) if dcfg else ()
+    rep, wsp = Spec(), Spec(waxes)
+    art = state.artemis
+    return TrainState(
+        params=map_tree(lambda _: rep, state.params),
+        opt_state=map_tree(lambda _: rep, state.opt_state),
+        artemis=ArtemisDistState(
+            h=map_tree(lambda _: wsp, art.h),
+            hbar=map_tree(lambda _: rep, art.hbar),
+            e=map_tree(lambda _: wsp, art.e),
+            acc=map_tree(lambda _: wsp, art.acc),
+            prev_active=wsp, step=rep),
+        step=rep)
+
+
+def state_shardings(mesh, state, pshard: Dict, dcfg: Optional[DistConfig]):
+    """The shardings of a ``TrainState`` (``launch/mesh.NamedSharding``),
+    the reference's rules: the parameters at ``pshard``; the optimizer
+    state replicated.  Bucketed wire: ``h``, ``e`` and ``acc`` (``[W, B, R,
+    C]`` or a ``[W]`` stub) split over the worker axes, ``hbar``
+    replicated.  Leaf wire: ``h`` shifted onto the worker axes (a leading
+    worker dim before the parameter's spec) where the variant has memory,
+    with ``hbar`` at the parameter's sharding, else both replicated; ``e``
+    and ``acc`` shifted where error feedback and local steps are on."""
+    from repro_torch.launch.mesh import NamedSharding, Spec
+    rep = NamedSharding(mesh, Spec())
+    waxes = tuple(dcfg.worker_axes) if dcfg else ()
+    wsh = NamedSharding(mesh, Spec(waxes))
+    art = state.artemis
+    opt_sh = map_tree(lambda _: rep, state.opt_state)
+    if dcfg is not None and dcfg.bucketed:
+        return TrainState(
+            params=dict(pshard), opt_state=opt_sh,
+            artemis=ArtemisDistState(
+                h=map_tree(lambda _: wsh, art.h),
+                hbar=map_tree(lambda _: rep, art.hbar),
+                e=map_tree(lambda _: wsh, art.e),
+                acc=map_tree(lambda _: wsh, art.acc),
+                prev_active=wsh, step=rep),
+            step=rep)
+    shifted = [NamedSharding(mesh, Spec(waxes, *ns.spec))
+               for ns in pshard.values()]
+
+    def worker_tree(struct, full: bool):
+        return list(shifted) if full else map_tree(lambda _: rep, struct)
+
+    memory = dcfg is not None and dcfg.memory
+    h_sh = worker_tree(art.h, memory)
+    hbar_sh = (list(pshard.values()) if memory
+               else map_tree(lambda _: rep, art.hbar))
+    e_sh = worker_tree(art.e, dcfg is not None and dcfg.use_ef)
+    acc_sh = worker_tree(art.acc, dcfg is not None and dcfg.local_steps > 1)
+    return TrainState(
+        params=dict(pshard), opt_state=opt_sh,
+        artemis=ArtemisDistState(h=h_sh, hbar=hbar_sh, e=e_sh, acc=acc_sh,
+                                 prev_active=wsh, step=rep),
+        step=rep)
 
 
 def default_alpha(params, s: int) -> float:

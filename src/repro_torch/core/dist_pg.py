@@ -51,12 +51,31 @@ Draws.  By default every rank draws the whole ``[W]`` step of
 process-group run sees the simulated axis's draws; ``noise`` takes any
 ``MeshNoiseSource``.
 
+The sharded mesh (``mesh=``, the reference's ``make_train_step`` over a
+(data, model) or (pod, data, model) device mesh, ``launch/mesh.py``).  One
+worker per coordinate of the worker axis (``dcfg.worker_axes``), each
+worker the ranks of the other axes.  The ring runs over the worker axis's
+group (``mesh[axis].get_group()``).  At rest the parameters are DTensors
+at the policy's sharding (``pshard``, the worker axis included); a step
+gathers them over the worker axis and runs the model inside the worker on
+DTensors over the other axes, placed by ``strip_axes(param_spec,
+worker_axes)`` (the reference's ``gspecs``).  Each gradient is
+redistributed to that placement, then gathered whole: the wire encodes
+full gradients, so its layout and every bit of the ring are the unsharded
+step's, and each rank of a worker runs the same ring.  The optimizer
+state is replicated, the per-worker Artemis state is this worker's ``[1,
+...]`` block, and the update lands on each rank's block of the
+parameters.  ``dcfg=None`` is plain data parallelism over the mesh: the
+loss of the whole batch on DTensors, whose gradients DTensor itself
+reduces over the data axis.
+
 ``launch(target, world_size, ...)`` starts the ranks as processes on one
 host (``tcp://localhost``), each with a 60 s collective timeout, and waits
 for them within a timeout of its own.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import multiprocessing
 import socket
@@ -220,17 +239,101 @@ def mean_over_ranks(ring: ProcessRing, loss: torch.Tensor,
     return mean[0], {k: mean[i + 1] for i, k in enumerate(names)}
 
 
+def _placed_like(u: torch.Tensor, p):
+    """``u`` (whole on every rank) in the placement of the DTensor ``p``
+    (this rank's block; no communication); a plain ``p``: ``u``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(p, DTensor):
+        return u
+    mesh = p.device_mesh
+    return DTensor.from_local(u, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(mesh,
+                                                            p.placements)
+
+
+def _local(x):
+    """A replicated DTensor's value (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def dtensor_grads(model) -> Callable:
+    """``model.loss``'s gradient on DTensors, with plain autograd:
+    ``torch.func`` refuses DTensor's redistributions (autograd Functions
+    without ``setup_context``), which the model's sharding hooks and the
+    MoE anchors call.  Plain tensors made inside the model meet the
+    DTensors as replicated ones.  Returns (grads {name: DTensor}, (loss,
+    metrics)) as ``rank_grads`` does."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def grads(params, batch):
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        with implicit_replication():
+            loss, metrics = model.loss(leaves, batch)
+            got = torch.autograd.grad(loss, list(leaves.values()),
+                                      allow_unused=True)
+        g = {k: torch.zeros_like(p) if x is None else x
+             for (k, p), x in zip(leaves.items(), got)}
+        return g, (loss.detach(), {k: v.detach()
+                                   for k, v in metrics.items()})
+
+    return grads
+
+
+def mesh_grads(model, mesh, worker_axes: Sequence[str]) -> Callable:
+    """A worker's gradient on the sharded mesh (``dtensor_grads``) on the
+    parameters (DTensors at rest, gathered over the worker axes) and this
+    worker's batch, both as DTensors on the sub-mesh of the other axes.
+    Each gradient is redistributed to its parameter's placement there
+    (``gspecs``) and gathered whole.  Returns (grads {name: full tensor},
+    (loss, metrics)) as ``rank_grads`` does."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import mesh as M
+    waxes = tuple(worker_axes)
+    fn = dtensor_grads(model)
+    gshard: Dict = {}
+
+    def gather(p, name):
+        if name not in gshard:
+            gshard[name] = M.NamedSharding(mesh, M.strip_axes(
+                M.param_spec(mesh, name, tuple(p.shape)), waxes))
+        want = gshard[name].placements
+        if isinstance(p, DTensor) and tuple(p.placements) != tuple(want):
+            p = p.redistribute(mesh, want)
+        return D.to_inner(p, mesh, waxes)
+
+    def grads(params, batch):
+        inner = {k: gather(p, k) for k, p in params.items()}
+        rows = {k: D.to_inner(v, mesh, waxes) for k, v in batch.items()}
+        g, (loss, metrics) = fn(inner, rows)
+        full = {}
+        for k, x in g.items():
+            if isinstance(x, DTensor):
+                want = inner[k].placements
+                if tuple(x.placements) != tuple(want):
+                    x = x.redistribute(x.device_mesh, want)
+                x = x.full_tensor()
+            full[k] = x
+        return full, (_local(loss), {k: _local(v)
+                                     for k, v in metrics.items()})
+
+    return grads
+
+
 def make_local_step(model, dcfg: D.DistConfig, *,
-                    grad_fn: Optional[Callable] = None):
+                    grad_fn: Optional[Callable] = None, mesh=None):
     """Accumulate-only step for ``local_steps > 1`` on this rank (the
     reference's ``make_local_step``): run it k-1 times between
     ``make_train_step``'s communicating steps.  It adds this rank's
     gradient to its accumulator (in bucket space on the bucketed wire, per
     leaf on the leaf wire) and sends nothing; ``step_fn(state, batch) ->
-    (state, (loss, metrics))`` returns this rank's own loss and metrics."""
+    (state, (loss, metrics))`` returns this rank's own loss and metrics.
+    ``mesh``: the sharded mesh's worker gradient (``mesh_grads``)."""
     if dcfg.local_steps < 2:
         raise ValueError("make_local_step needs local_steps > 1")
-    grad_fn = rank_grads(model) if grad_fn is None else grad_fn
+    if grad_fn is None:
+        grad_fn = (rank_grads(model) if mesh is None
+                   else mesh_grads(model, mesh, dcfg.worker_axes))
 
     def local_fn(state: D.TrainState, batch: Dict[str, torch.Tensor]):
         grads, out = grad_fn(state.params, batch)
@@ -243,12 +346,53 @@ def make_local_step(model, dcfg: D.DistConfig, *,
     return local_fn
 
 
-def make_train_step(model, optimizer, dcfg: D.DistConfig, group=None,
-                    device=None, *, noise: Optional[MeshNoiseSource] = None,
-                    grad_fn: Optional[Callable] = None):
+def make_plain_mesh_step(model, optimizer, mesh, device=None):
+    """The reference's ``dcfg=None`` step on a mesh: plain data
+    parallelism over DTensors.  ``init_state(params)`` places the
+    parameters (and the optimizer state, made from them) at the policy's
+    sharding; ``step_fn(state, batch)`` takes the batch as DTensors
+    (``ShardedBatches``) and returns the loss of the whole batch, DTensor
+    reducing the gradients over the data axis."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import mesh as M
+    value_grad = dtensor_grads(model)
+
+    def init_state(params: D.Params) -> D.TrainState:
+        pshard = M.params_shardings(mesh, params)
+        placed = {k: M.distribute(v, pshard[k]) for k, v in params.items()}
+        return D.TrainState(params=placed,
+                            opt_state=optimizer.init(list(placed.values())),
+                            artemis=D.init_dist_state(None, [], 1,
+                                                      device=device),
+                            step=0)
+
+    def step_fn(state: D.TrainState, batch):
+        with implicit_replication():
+            grads, (loss, metrics) = value_grad(state.params, batch)
+            agg = [g.redistribute(p.device_mesh, p.placements)
+                   for g, p in zip(grads.values(), state.params.values())]
+            updates, opt_state = optimizer.update(agg, state.opt_state,
+                                                  state.step)
+            params = {k: p - u.to(p.dtype)
+                      for (k, p), u in zip(state.params.items(), updates)}
+        art = dataclasses.replace(state.artemis, step=state.artemis.step + 1)
+        return D.TrainState(params, opt_state, art, state.step + 1), (
+            _local(loss), {k: _local(v) for k, v in metrics.items()})
+
+    return init_state, step_fn
+
+
+def make_train_step(model, optimizer, dcfg: Optional[D.DistConfig],
+                    group=None, device=None, *,
+                    noise: Optional[MeshNoiseSource] = None,
+                    grad_fn: Optional[Callable] = None, mesh=None):
     """Build ``(init_state, step_fn)`` for this rank of ``group`` (the
     default group when None) on ``device`` (CUDA unless the caller names
-    another).
+    another).  ``mesh``: the sharded mesh (a ``DeviceMesh`` over the
+    default group): the ring goes over the worker axis's group, the
+    gradient is ``mesh_grads``'s, and ``init_state`` places the parameters
+    at the policy's sharding; ``dcfg=None`` there is
+    ``make_plain_mesh_step``.
 
     ``init_state(params)`` takes the replicated params dict (the model's
     leaf names in flatten order) and builds this rank's ``[1, ...]`` state.
@@ -259,6 +403,14 @@ def make_train_step(model, optimizer, dcfg: D.DistConfig, group=None,
     ``make_local_step`` accumulated.  ``step_fn.ring`` is the
     ``ProcessRing``."""
     dev = default_device(device)
+    if mesh is not None:
+        if dcfg is None:
+            return make_plain_mesh_step(model, optimizer, mesh, dev)
+        if len(dcfg.worker_axes) != 1:
+            raise ValueError("the mesh's ring runs over one worker axis")
+        group = mesh[dcfg.worker_axes[0]].get_group()
+        if grad_fn is None:
+            grad_fn = mesh_grads(model, mesh, dcfg.worker_axes)
     ring = ProcessRing(group, dev, dcfg.reduce_impl)
     grad_fn = rank_grads(model) if grad_fn is None else grad_fn
     source = noise
@@ -266,6 +418,11 @@ def make_train_step(model, optimizer, dcfg: D.DistConfig, group=None,
 
     def init_state(params: D.Params) -> D.TrainState:
         plist = list(params.values())
+        if mesh is not None:
+            from repro_torch.launch import mesh as M
+            pshard = M.params_shardings(mesh, params)
+            params = {k: M.distribute(v, pshard[k])
+                      for k, v in params.items()}
         return D.TrainState(params=dict(params),
                             opt_state=optimizer.init(plist),
                             artemis=D.init_dist_state(dcfg, plist, 1,
@@ -299,7 +456,7 @@ def make_train_step(model, optimizer, dcfg: D.DistConfig, group=None,
             agg, art, obs = D.leaf_aggregate(dcfg, art, g, ring, draws)
         updates, opt_state = optimizer.update(agg, state.opt_state,
                                               state.step)
-        params = {k: p - u.to(p.dtype)
+        params = {k: p - _placed_like(u.to(p.dtype), p)
                   for (k, p), u in zip(state.params.items(), updates)}
         loss, metrics = mean_over_ranks(ring, loss, metrics)
         if obs is not None:

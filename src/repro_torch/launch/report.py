@@ -2,8 +2,10 @@
 
   PYTHONPATH=src python -m repro_torch.launch.report dryrun.json
 
-One table of every combo on one H100 (no pod or multi-pod mesh), the skips,
-the errors, and the peak-bytes estimates against the card's 80 GB.
+The table of every combo on one H100, then, as the reference prints them,
+the single-pod table (16 x 16 = 256 ranks) and the multi-pod table (2 x 16
+x 16 = 512 ranks), each row one rank's terms; the skips, the errors, and
+the peak-bytes estimates (a rank's, on a mesh) against the card's 80 GB.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import json
 import sys
 
 from repro_torch.launch.dryrun import H100_BYTES
-from repro_torch.launch.roofline import markdown_table
+from repro_torch.launch.roofline import markdown_table, mesh_table
 
 
 def main(path: str) -> None:
@@ -20,21 +22,34 @@ def main(path: str) -> None:
     ok = [r for r in rows if r.get("status") == "ok"]
     skip = [r for r in rows if r.get("status") == "skip"]
     err = [r for r in rows if r.get("status") == "error"]
+
+    def on(mesh):
+        return sorted((r for r in ok if r.get("mesh", "one-card") == mesh),
+                      key=lambda r: (r["arch"], r["shape"],
+                                     r.get("dist", "none")))
+
     print("### Roofline: one H100 (the dry run on fake tensors)\n")
-    print(markdown_table(sorted(ok, key=lambda r: (r["arch"], r["shape"],
-                                                   r.get("dist", "none")))))
+    print(markdown_table(on("one-card")))
+    print("\n### Single-pod (16 x 16 = 256 ranks), one rank's terms\n")
+    print(mesh_table(on("pod")))
+    print("\n### Multi-pod (2 x 16 x 16 = 512 ranks): the pod axis and "
+          "Artemis\n")
+    print(mesh_table(on("multipod")))
     print("\n### Skips\n")
     for r in skip:
-        print(f"* {r['arch']} x {r['shape']}: {r['reason']}")
+        if r.get("mesh", "one-card") in ("one-card", "pod"):
+            print(f"* {r['arch']} x {r['shape']}: {r['reason']}")
     if err:
         print("\n### ERRORS\n")
         for r in err:
-            print(f"* {r['arch']} x {r['shape']} x {r.get('dist', 'none')}")
-    print("\n### Peak bytes (fits 80 GB H100?)\n")
+            print(f"* {r['arch']} x {r['shape']} x "
+                  f"{r.get('mesh', 'one-card')} x {r.get('dist', 'none')}")
+    print("\n### Peak bytes (a rank's on a mesh; fits 80 GB H100?)\n")
     for r in sorted(ok, key=lambda r: -r["peak_bytes"])[:8]:
         pk = r["peak_bytes"]
-        print(f"* {r['arch']} x {r['shape']} x {r.get('dist', 'none')}: "
-              f"{pk / 1e9:.2f} GB {'OK' if pk < H100_BYTES else 'OVER'}")
+        print(f"* {r['arch']} x {r['shape']} x {r.get('mesh', 'one-card')} "
+              f"x {r.get('dist', 'none')}: {pk / 1e9:.2f} GB "
+              f"{'OK' if pk < H100_BYTES else 'OVER'}")
 
 
 if __name__ == "__main__":

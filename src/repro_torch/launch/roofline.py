@@ -15,18 +15,25 @@ sheet): 3.35 TB/s of device memory and 450 GB/s each way over NVLink.
 measurement.
 
 ``Roofline`` turns a dry run's counts (``launch/dryrun.py``) into the
-three terms against one H100: compute (FLOPs at the dense bf16 peak, the
-models' compute dtype), memory (bytes at ``HBM_BW``) and the wire.
+terms against one H100: compute (FLOPs at the dense bf16 peak, the
+models' compute dtype), memory (bytes at ``HBM_BW``), the wire (the
+simulated workers' ring, from the wire model), and, on a mesh, the
+collectives: this rank's collective bytes (by mesh axis and op, the
+result of each collective and the payload of each send) at ``LINK_BW``,
+one link a rank as the reference's model has one a chip.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 HBM_BW = 3.35e12          # bytes/s, H100 SXM device memory
-LINK_BW = 450e9           # bytes/s, H100 NVLink, one direction
+# bytes/s a rank sends: one H100 SXM's NVLink 4, 900 GB/s both ways over
+# its 18 links (NVIDIA's H100 data sheet), so 450 GB/s each way; the
+# wire models and the mesh's collective term price a rank's bytes at it
+LINK_BW = 450e9
 COLL_LAT = 2e-6           # s per collective (assumed, not measured)
 # dense bf16 tensor-core peak of one H100 SXM (NVIDIA's H100 data sheet,
 # without sparsity; at the full 700 W power limit)
@@ -120,10 +127,12 @@ def leaf_wire_model(leaf_shapes, *, n_workers: int, codec=None,
 
 @dataclasses.dataclass
 class Roofline:
-    """One dry-run combo against one H100: ``compute_s`` = FLOPs at
-    ``PEAK_BF16_FLOPS``, ``memory_s`` = bytes accessed at ``HBM_BW``,
-    ``wire_s`` the ring's time from the wire model; ``dominant`` the largest
-    term, ``useful_ratio`` = MODEL_FLOPS / counted FLOPs."""
+    """One dry-run combo against one H100 (a rank's counts on a mesh):
+    ``compute_s`` = FLOPs at ``PEAK_BF16_FLOPS``, ``memory_s`` = bytes
+    accessed at ``HBM_BW``, ``wire_s`` the simulated workers' ring from the
+    wire model, ``collective_s`` the mesh's collective bytes
+    (``coll_bytes``: {axis: {op: bytes}}) at ``LINK_BW``; ``dominant`` the
+    largest term, ``useful_ratio`` = MODEL_FLOPS / counted FLOPs."""
     arch: str
     shape: str
     kind: str                       # train | prefill | decode
@@ -131,22 +140,32 @@ class Roofline:
     bytes_accessed: float
     wire_s: float
     model_flops: float
+    coll_bytes: Optional[Dict[str, Dict[str, float]]] = None
     compute_s: float = 0.0
     memory_s: float = 0.0
+    collective_s: float = 0.0
     dominant: str = ""
     useful_ratio: float = 0.0
 
     def finalize(self) -> "Roofline":
         self.compute_s = self.flops / PEAK_BF16_FLOPS
         self.memory_s = self.bytes_accessed / HBM_BW
+        self.collective_s = collective_s(self.coll_bytes or {})
         terms = {"compute": self.compute_s, "memory": self.memory_s,
-                 "wire": self.wire_s}
+                 "wire": self.wire_s, "collective": self.collective_s}
         self.dominant = max(terms, key=terms.get)
         self.useful_ratio = self.model_flops / max(self.flops, 1.0)
         return self
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def collective_s(coll_bytes: Dict[str, Dict[str, float]],
+                 link_bw: float = LINK_BW) -> float:
+    """A rank's collective time: all its collective bytes (over every mesh
+    axis and op) through its one link."""
+    return sum(sum(ops.values()) for ops in coll_bytes.values()) / link_bw
 
 
 def count_params(params) -> int:
@@ -183,6 +202,7 @@ def model_flops(cfg, params, kind: str, batch: int, seq: int) -> float:
 
 
 def markdown_table(rows) -> str:
+    """The one-card rows (simulated workers, the ring's wire term)."""
     hdr = ("| arch | shape | dist | W | kind | compute (s) | memory (s) | "
            "wire (s) | dominant | MODEL/counted flops | peak (GB) |\n"
            "|---|---|---|---|---|---|---|---|---|---|---|\n")
@@ -191,5 +211,21 @@ def markdown_table(rows) -> str:
         f"{r.get('workers', 1)} | {r['kind']} | {r['compute_s']:.3e} | "
         f"{r['memory_s']:.3e} | {r['wire_s']:.3e} | **{r['dominant']}** | "
         f"{r['useful_ratio']:.2f} | {r['peak_bytes'] / 1e9:.2f} |"
+        for r in rows]
+    return hdr + "\n".join(lines)
+
+
+def mesh_table(rows) -> str:
+    """The mesh rows, one rank's terms, as the reference's table prints
+    them, with the rank's peak estimate."""
+    hdr = ("| arch | shape | mesh | dist | kind | compute (s) | memory (s) | "
+           "collective (s) | dominant | MODEL/counted flops | peak (GB) |\n"
+           "|---|---|---|---|---|---|---|---|---|---|---|\n")
+    lines = [
+        f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+        f"{r.get('dist', 'none')} | {r['kind']} | {r['compute_s']:.3e} | "
+        f"{r['memory_s']:.3e} | {r['collective_s']:.3e} | "
+        f"**{r['dominant']}** | {r['useful_ratio']:.2f} | "
+        f"{r['peak_bytes'] / 1e9:.2f} |"
         for r in rows]
     return hdr + "\n".join(lines)

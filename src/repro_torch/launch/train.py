@@ -11,14 +11,22 @@ divergence sentinel with lr backoff and rollbacks.
 The W workers are simulated on one device (``--workers W``: the bucketed
 ring of ``core/dist.py``), or run one process each (``--ranks W``: the
 process-group ring of ``core/dist_pg.py`` over gloo, the counterpart of the
-reference's worker mesh axis).  Over ranks, each rank takes its contiguous
+reference's worker mesh axis), or run on a sharded mesh (``--mesh DxM``:
+D x M processes, the reference's (data, model) device mesh; the workers
+are the D coordinates of the data axis, each with the model sharded over
+its M ranks by ``launch/mesh.py``'s policy and the model's sharding hooks
+set; ``--dist none`` is plain data parallelism over the mesh).  The mesh
+runs over gloo on the CPU and nccl on CUDA (one card a rank).  Over ranks, each rank takes its contiguous
 rows of every global batch (``data/pipeline.ShardedBatches``), the logged
 loss is the mean over the ranks (so every rank takes the same rollback
 decision), rank 0 writes the event log and the log file, and each rank
-checkpoints into ``<ckpt-dir>/rank<r>`` (``--resume`` restores each rank's
-own).  On CUDA rank r takes card r mod the cards there are.  The event
-log's ``run_end`` counts the run's kernel launches (over ranks, their
-sum).
+checkpoints into ``<ckpt-dir>/rank<r>`` (``--resume`` restores each
+rank's own); on the mesh, into ``<ckpt-dir>/rank<w>`` for worker (data
+coordinate) w, whole arrays written by its model rank 0, and
+``--resume`` places them back on the mesh.  On CUDA rank r takes card r
+mod the cards there are.  The event log's ``run_end`` counts the run's
+kernel launches (over ranks, their sum) and, on CUDA, the largest peak of
+device memory on a rank.
 
 It runs on CUDA unless ``--device`` names another device.
 """
@@ -42,21 +50,15 @@ from repro_torch.core import faults
 from repro_torch.data.pipeline import ShardedBatches
 from repro_torch.data.synthetic import TokenStream, TokenStreamConfig
 from repro_torch.kernels import KERNELS
+from repro_torch.launch import mesh as mesh_policy
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import build_model
 from repro_torch.obs import events as obs_events
 from repro_torch.obs import spans as obs_spans
 from repro_torch.optim import adam, sgd
 
-_EPILOG = ("The reference's --mesh (a data x model device mesh) is not "
-           "ported yet (ROADMAP.md §A, A14): W workers are simulated on the "
-           "device (--workers) or run one process each (--ranks), and the "
-           "model is not sharded.")
-
-
 def _parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0],
-                                 epilog=_EPILOG)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
@@ -74,7 +76,9 @@ def _parser() -> argparse.ArgumentParser:
                          "(core/dist_pg.py over gloo), each on its rows of "
                          "the batch; in place of --workers")
     ap.add_argument("--mesh", default=None,
-                    help="refused: the sharded mesh is not ported yet")
+                    help="DxM: a data x model mesh of D*M processes, the "
+                         "workers the D data coordinates, the model sharded "
+                         "over M (launch/mesh.py)")
     ap.add_argument("--s", type=int, default=1, help="quantization levels")
     ap.add_argument("--participation", type=float, default=1.0)
     ap.add_argument("--local-steps", type=int, default=1,
@@ -107,17 +111,36 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None, *, config: Optional[ModelConfig] = None):
+def main(argv=None, *, config: Optional[ModelConfig] = None,
+         params: Optional[dict] = None, noise=None):
     """Run the CLI on ``argv``; returns the logged records (rank 0's with
-    ``--ranks``).  ``config`` (for callers in Python) replaces the
-    ``--arch`` lookup."""
+    ``--ranks`` or ``--mesh``).  For callers in Python: ``config``
+    replaces the ``--arch`` lookup, ``params`` (numpy arrays keyed as the
+    model's) the seeded initial parameters, and ``noise`` (a
+    ``MeshNoiseSource``, picklable for ranks) the wire's draws."""
+    given = (config, params, noise)
     ap = _parser()
     args = ap.parse_args(argv)
     if args.mesh is not None:
-        ap.error("--mesh: the sharded mesh (launch/mesh.py) is not ported "
-                 "yet; it is queued in ROADMAP.md §A (A14)")
+        d, m = _mesh_shape(ap, args.mesh)
+        if args.ranks:
+            ap.error("--mesh sets the ranks (D x M); --ranks is for the "
+                     "unsharded ranks")
+        if args.workers not in (1, d):
+            ap.error(f"--mesh {args.mesh}: the workers are its {d} data "
+                     f"coordinates; --workers is for the simulated workers")
+        if args.batch % d:
+            ap.error(f"--batch {args.batch} does not split over {d} data "
+                     f"coordinates")
+        dev = default_device(args.device)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if backend == "nccl" and d * m > torch.cuda.device_count():
+            ap.error(f"--mesh {args.mesh}: nccl takes one card a rank, and "
+                     f"{d * m} ranks need {d * m} cards, not "
+                     f"{torch.cuda.device_count()}")
+        return _launch(args, given, d * m, backend)
     if not args.ranks:
-        return _train(args, config)
+        return _train(args, given)
     if args.dist == "none":
         ap.error("--ranks needs a wire (--dist other than none)")
     if args.workers not in (1, args.ranks):
@@ -126,28 +149,43 @@ def main(argv=None, *, config: Optional[ModelConfig] = None):
         ap.error(f"--batch {args.batch} does not split over {args.ranks} "
                  f"ranks")
     default_device(args.device)         # raises here, not in every rank
+    return _launch(args, given, args.ranks, "gloo")
+
+
+def _mesh_shape(ap, text: str):
+    try:
+        d, m = (int(x) for x in text.split("x"))
+    except ValueError:
+        ap.error(f"--mesh {text!r}: expected DxM, e.g. 2x2")
+    if d < 1 or m < 1:
+        ap.error(f"--mesh {text!r}: both sizes must be positive")
+    return d, m
+
+
+def _launch(args, given, world: int, backend: str):
+    """``world`` ranks of ``_train`` over ``backend``; rank 0's logs."""
     with tempfile.TemporaryDirectory() as out_dir:
-        codes = dist_pg.launch(_rank_train, args.ranks,
-                               (args, config, out_dir), timeout=None)
+        codes = dist_pg.launch(_rank_train, world, (args, given, out_dir),
+                               backend=backend, timeout=None)
         outs = []
-        for r in range(args.ranks):
+        for r in range(world):
             path = os.path.join(out_dir, f"rank{r}.json")
             if os.path.exists(path):
                 with open(path) as fh:
                     outs.append(json.load(fh))
     errors = [o["error"] for o in outs if "error" in o]
-    if errors or codes != [0] * args.ranks:
+    if errors or codes != [0] * world:
         raise RuntimeError(f"a rank failed (exit codes {codes})"
                            + (f": {errors[0]}" if errors else ""))
     return outs[0]["logs"]
 
 
-def _rank_train(rank: int, world: int, args, config, out_dir: str) -> None:
+def _rank_train(rank: int, world: int, args, given, out_dir: str) -> None:
     """One rank of ``--ranks``: trains, then writes its logs (or its error)
     to ``out_dir/rank<r>.json``."""
     out = {}
     try:
-        out["logs"] = _train(args, config, rank=rank, world=world)
+        out["logs"] = _train(args, given, rank=rank, world=world)
     except Exception as e:  # noqa: BLE001 (handed to the parent, re-raised)
         out["error"] = f"{type(e).__name__}: {e}"
         raise
@@ -156,16 +194,23 @@ def _rank_train(rank: int, world: int, args, config, out_dir: str) -> None:
             json.dump(out, fh)
 
 
-def _train(args, config: Optional[ModelConfig], rank: int = 0,
-           world: int = 0):
+def _train(args, given, rank: int = 0, world: int = 0):
     """The training loop: W = ``args.workers`` simulated workers, or (with
-    ``world``) this rank of ``world`` in the default process group."""
+    ``world``) this rank of ``world`` in the default process group, one
+    worker a rank (``--ranks``) or a rank of the mesh (``--mesh``)."""
     dev = default_device(args.device)
     if world and dev.type == "cuda" and args.device in (None, "cuda"):
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
+    config, init_params, noise = given
     cfg = config or configs.get_config(args.arch, reduced=args.reduced)
     model = build_model(cfg)
+    mesh, worker = None, rank
+    if args.mesh is not None:
+        d, m = (int(x) for x in args.mesh.split("x"))
+        mesh = dist.make_worker_mesh((d, m), ("data", "model"),
+                                     device_type=dev.type)
+        worker, model_rank = mesh.get_coordinate()
 
     fc = faults.FaultConfig(
         straggler_rate=args.straggler_rate, p_stay=args.p_stay,
@@ -175,11 +220,18 @@ def _train(args, config: Optional[ModelConfig], rank: int = 0,
     dcfg = None
     n_workers = 1
     if args.dist != "none":
-        dcfg = dist.DistConfig(variant=args.dist, s=args.s,
+        dcfg = dist.DistConfig(worker_axes=("data",) if mesh else ("pod",),
+                               variant=args.dist, s=args.s,
                                p_participation=args.participation,
                                local_steps=args.local_steps,
                                faults=fc if fc.enabled else None)
-        n_workers = world or args.workers
+        n_workers = (mesh.size(0) if mesh is not None
+                     else world or args.workers)
+
+    if mesh is not None:
+        banned = dcfg.worker_axes if dcfg else ()
+        model.set_sharding(mesh_policy.layer_constraint_fn(mesh, banned),
+                           mesh_policy.act_constraint_fn(mesh, banned))
 
     def optimizer(scale):
         lr = args.lr * scale
@@ -188,23 +240,36 @@ def _train(args, config: Optional[ModelConfig], rank: int = 0,
     def make_step(scale):
         if world:
             return dist_pg.make_train_step(model, optimizer(scale), dcfg,
-                                           device=dev)
+                                           device=dev, noise=noise,
+                                           mesh=mesh)
         return dist.make_train_step(model, optimizer(scale), dcfg,
-                                    n_workers, device=dev)
+                                    n_workers, device=dev, noise=noise)
 
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    if init_params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+    else:
+        params = {k: torch.as_tensor(v).to(dev)
+                  for k, v in init_params.items()}
     init_state, step_fn = make_step(1.0)
     local_fn = None
     if dcfg and dcfg.local_steps > 1:
-        local_fn = (dist_pg.make_local_step(model, dcfg) if world
-                    else dist.make_local_step(model, dcfg, n_workers))
+        local_fn = (dist_pg.make_local_step(model, dcfg, mesh=mesh)
+                    if world else
+                    dist.make_local_step(model, dcfg, n_workers))
 
     stream = TokenStream(TokenStreamConfig(
         vocab=cfg.vocab, seq_len=args.seq, batch=args.batch), device="cpu")
-    batches = ShardedBatches(stream, dev, rank=rank, world=world or 1)
+    if mesh is not None:
+        batches = ShardedBatches(stream, dev, mesh=mesh,
+                                 batch_axes=("data",))
+    else:
+        batches = ShardedBatches(stream, dev, rank=rank, world=world or 1)
     ckpt_dir = args.ckpt_dir
     if ckpt_dir and world:
-        ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{worker}")
+    # on the mesh every rank joins a save's gathers; a worker's model
+    # rank 0 writes
+    writes = mesh is None or model_rank == 0
 
     # console output + optional JSONL log share one schema-checked sink;
     # over ranks, rank 0's alone
@@ -217,13 +282,21 @@ def _train(args, config: Optional[ModelConfig], rank: int = 0,
                       "steps": args.steps, "batch": args.batch,
                       "seq": args.seq, "lr": args.lr,
                       "workers": n_workers, "ranks": world,
-                      "device": str(dev), "layout": layout},
+                      "mesh": args.mesh, "device": str(dev),
+                      "layout": layout},
               fingerprint=f"{args.arch}:{args.dist}:s{args.s}")
     try:
         state = init_state(params)
         if (args.resume and ckpt_dir
                 and checkpointer.latest_step(ckpt_dir) is not None):
-            state = checkpointer.restore(ckpt_dir, state)
+            shardings = None
+            if mesh is not None:
+                # the parameters back at the policy's sharding on the mesh
+                shardings = dist.map_tree(lambda _: None, state)
+                shardings.params = mesh_policy.params_shardings(
+                    mesh, state.params)
+            state = checkpointer.restore(ckpt_dir, state,
+                                         shardings=shardings)
             log.emit("note", text=f"restored step {state.step}")
 
         logs = []
@@ -251,7 +324,8 @@ def _train(args, config: Optional[ModelConfig], rank: int = 0,
                     state, (loss, metrics) = step_fn(state, batch)
             if i % args.log_every == 0 or i == start + args.steps - 1:
                 if local and world:
-                    # a rank's local step returns its own loss
+                    # a rank's local step returns its own loss (dcfg is
+                    # set: local steps need a wire)
                     loss, metrics = dist_pg.mean_over_ranks(step_fn.ring,
                                                             loss, metrics)
                 loss_f = float(loss)
@@ -280,10 +354,10 @@ def _train(args, config: Optional[ModelConfig], rank: int = 0,
                 good_state = state
             if (args.ckpt_every and ckpt_dir
                     and state.step % args.ckpt_every == 0):
-                checkpointer.save(ckpt_dir, state.step, state)
+                checkpointer.save(ckpt_dir, state.step, state, write=writes)
             i += 1
         if ckpt_dir:
-            checkpointer.save(ckpt_dir, state.step, state)
+            checkpointer.save(ckpt_dir, state.step, state, write=writes)
         wall = time.perf_counter() - t0
         steady = obs_spans.total("train/step")
         if first_s is not None:
@@ -293,9 +367,19 @@ def _train(args, config: Optional[ModelConfig], rank: int = 0,
         # the run's kernel launches (over ranks: summed over them)
         launched = [k.launches - n for k, n in zip(KERNELS, launched)]
         if world:
-            launched = step_fn.ring.sum(torch.tensor(
-                launched, device=dev)).tolist()
-        log.end(status="ok", wall_s=round(wall, 3),
+            total = torch.tensor(launched, device=dev)
+            torch.distributed.all_reduce(total)
+            launched = total.tolist()
+        extra = {}
+        if dev.type == "cuda":
+            # the largest peak of device memory on any rank
+            peak = torch.tensor([torch.cuda.max_memory_allocated(dev)],
+                                device=dev)
+            if world:
+                torch.distributed.all_reduce(
+                    peak, op=torch.distributed.ReduceOp.MAX)
+            extra["device_peak_bytes"] = int(peak.item())
+        log.end(status="ok", wall_s=round(wall, 3), **extra,
                 kernel_launches={k.__name__: int(n)
                                  for k, n in zip(KERNELS, launched)})
     finally:

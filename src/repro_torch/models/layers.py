@@ -78,6 +78,48 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # Attention (GQA, causal, optional sliding window), q-chunked
 # ---------------------------------------------------------------------------
 
+def rows_local(fn, rows, whole=(), **kw):
+    """``fn(*rows, *whole, **kw)`` on plain tensors, each rank on its own
+    block of rows.  Where a tensor of ``rows`` is a DTensor, every tensor of
+    ``rows`` is placed with dim 0 split over the mesh dims where the first
+    DTensor of them splits it (replicated over the others), every tensor of
+    ``whole`` replicated (a plain tensor is taken as replicated), and the
+    output comes back as a DTensor so placed.  For ops independent across
+    rows (a batch, MoE groups) that DTensor shards badly: its index_put and
+    index_add rules, and its planning of a padded sequence, fail on some
+    versions."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    lead = next((a for a in rows if isinstance(a, DTensor)), None)
+    if lead is None:
+        return fn(*rows, *whole, **kw)
+    mesh = lead.device_mesh
+    want = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in lead.placements]
+    rep = [Replicate()] * mesh.ndim
+
+    def local(a, placements):
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, rep, run_check=False)
+        if tuple(a.placements) != tuple(placements):
+            a = a.redistribute(mesh, placements)
+        return a.to_local()
+
+    out = fn(*[local(a, want) for a in rows],
+             *[local(a, rep) for a in whole], **kw)
+    return DTensor.from_local(out, mesh, want, run_check=False)
+
+
+def embed(table: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """The rows ``table[tok]``; on a DTensor table, through
+    ``F.embedding``, whose sharding rules (a feature-sharded table, sharded
+    token rows) DTensor has, where its indexing's backward (an index_put)
+    has none on some versions."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(table, DTensor):
+        return F.embedding(tok, table)
+    return table[tok]
+
+
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
           causal: bool) -> torch.Tensor:
     """[B, Sq, Sk] mask from q_pos [B, Sq], k_pos [B, Sk]: causal, and
@@ -120,6 +162,10 @@ def attention(q, k, v, q_pos, k_pos, *, window: int = 0, q_chunk: int = 512,
 
 def _attn_block(q, k, v, q_pos, k_pos, rep, scale, window, causal,
                 softmax_dtype):
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return _sharded_attn_block(q, k, v, q_pos, k_pos, rep, scale,
+                                   window, causal, softmax_dtype)
     b, sq, h, d = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, sq, kv, rep, d)
@@ -131,6 +177,127 @@ def _attn_block(q, k, v, q_pos, k_pos, rep, scale, window, causal,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkrqs,bskd->bqkrd", probs, v)
     return out.reshape(b, sq, h, d)
+
+
+def _sharded_attn_block(q, k, v, q_pos, k_pos, rep, scale, window, causal,
+                        softmax_dtype):
+    """``_attn_block`` on DTensors, each rank on its own batch rows and
+    query heads: attention is independent across both.  On each mesh dim
+    the batch (dim 0) stays split where q, k and v all split it; q's head
+    split (dim 2) stays, and k and v keep theirs there too where they split
+    their heads the same way, else they are gathered on that dim (their
+    heads need not divide it where the query heads do); every other dim
+    is replicated.  The block then runs on the local tensors, each rank's
+    query heads against the KV heads their groups read (``_local_kv``).
+    DTensor's own einsum would flatten a sharded head dim into the batch,
+    which some versions refuse."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    want_q, want_kv, grad_kv = [], [], []
+    for pq, pk, pv in zip(q.placements, k.placements, v.placements):
+        same = pq == pk == pv
+        if pq == Shard(2):
+            wq, wkv = pq, pq if same else Replicate()
+        elif pq == Shard(0) and same:
+            wq = wkv = pq
+        else:
+            wq = wkv = Replicate()
+        want_q.append(wq)
+        want_kv.append(wkv)
+        # K/V gathered under split query heads: each rank's gradient of
+        # them is its own heads' share
+        grad_kv.append(Partial() if wq != wkv else wkv)
+    q = q if tuple(q.placements) == tuple(want_q) else \
+        q.redistribute(mesh, want_q)
+    k, v = (t if tuple(t.placements) == tuple(want_kv)
+            else t.redistribute(mesh, want_kv) for t in (k, v))
+    ql = q.to_local()
+    rows = ql.shape[0]
+    h0 = _head_offset(mesh, want_q, q.shape[2])
+    k0 = _head_offset(mesh, want_kv, k.shape[2])
+    kl, rep_l = _local_kv(k.to_local(grad_placements=grad_kv), k0, h0,
+                          ql.shape[2], rep)
+    vl, _ = _local_kv(v.to_local(grad_placements=grad_kv), k0, h0,
+                      ql.shape[2], rep)
+
+    def local_pos(p):
+        p = p.full_tensor() if isinstance(p, DTensor) else p
+        return p[:rows]                 # every row holds the same positions
+
+    out = _attn_block(ql, kl, vl, local_pos(q_pos), local_pos(k_pos), rep_l,
+                      scale, window, causal, softmax_dtype)
+    return DTensor.from_local(out, mesh, want_q, run_check=False)
+
+
+def _head_offset(mesh, placements, heads: int) -> int:
+    """The first head of this rank's block of a dim of ``heads`` split
+    evenly (``Shard(2)``) over the mesh dims in order."""
+    from torch.distributed.tensor import Shard
+    first, size = 0, heads
+    for i, p in enumerate(placements):
+        if p == Shard(2):
+            size //= mesh.size(i)
+            first += mesh.get_local_rank(i) * size
+    return first
+
+
+def _local_kv(kl, k0: int, h0: int, n: int, rep: int):
+    """The KV heads that query heads ``h0 .. h0 + n - 1`` read (head h
+    reads KV head h // rep), from this rank's block ``kl`` [B, S, kv, D]
+    whose first head is ``k0``, and the group size they run at: a slice
+    where the query heads make whole groups or share one KV head, else
+    one KV head a query head."""
+    lo, hi = h0 // rep, (h0 + n - 1) // rep
+    assert 0 <= lo - k0 and hi - k0 < kl.shape[2], (h0, n, rep, k0)
+    if (h0 % rep == 0 and n % rep == 0) or lo == hi:
+        return kl[:, :, lo - k0:hi + 1 - k0], n // (hi + 1 - lo)
+    idx = (h0 + torch.arange(n, device=kl.device)) // rep - k0
+    return kl.index_select(2, idx), 1
+
+
+def split_heads(y, b: int, s: int, n: int, head_dim: int):
+    """``y`` [B, S, n * head_dim] as [B, S, n, head_dim].  On a DTensor
+    whose last dim is split over mesh dims that ``n`` does not divide,
+    those mesh dims are gathered first: DTensor refuses to unflatten a dim
+    it cannot split evenly, where the reference's partitioner pads."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if isinstance(y, DTensor):
+        mesh, last = y.device_mesh, y.dim() - 1
+        on_last = [i for i, p in enumerate(y.placements)
+                   if isinstance(p, Shard) and p.dim == last]
+        ways = 1
+        for i in on_last:
+            ways *= mesh.size(i)
+        if on_last and n % ways:
+            y = y.redistribute(mesh, [Replicate() if i in on_last else p
+                                      for i, p in enumerate(y.placements)])
+    return y.reshape(b, s, n, head_dim)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """[B, S, n, hd] -> [B, S, n * hd] on a DTensor, whose backward splits
+    the gradient with ``split_heads`` (a plain view's backward would
+    unflatten a dim that the next product left unevenly sharded)."""
+
+    @staticmethod
+    def forward(x):
+        return x.reshape(*x.shape[:-2], -1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.dims = tuple(inputs[0].shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, *ctx.dims)
+
+
+def merge_heads(x):
+    """[B, S, n, hd] -> [B, S, n * hd] (``_MergeHeads`` on a DTensor)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return _MergeHeads.apply(x)
+    return x.reshape(*x.shape[:-2], -1)
 
 
 def init_attn(gen, d_model, n_heads, n_kv, head_dim, dtype=torch.float32,
@@ -172,15 +339,15 @@ def attn_apply(p: Params, x, positions, *, n_heads, n_kv, head_dim, window=0,
     cross-attention.
     """
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
+    q = split_heads(x @ p["wq"], b, s, n_heads, head_dim)
     if cross_kv is not None:
         ck, cv, k_pos = cross_kv
         out = attention(q, ck, cv, positions, k_pos, window=0, causal=False,
                         q_chunk=q_chunk, softmax_dtype=softmax_dtype)
-        return out.reshape(b, s, -1) @ p["wo"], None
+        return merge_heads(out) @ p["wo"], None
 
-    k = (x @ p["wk"]).reshape(b, s, n_kv, head_dim)
-    v = (x @ p["wv"]).reshape(b, s, n_kv, head_dim)
+    k = split_heads(x @ p["wk"], b, s, n_kv, head_dim)
+    v = split_heads(x @ p["wv"], b, s, n_kv, head_dim)
     if rope_theta:
         q = rope(q, positions, rope_theta)
         k = rope(k, positions, rope_theta)
@@ -192,11 +359,11 @@ def attn_apply(p: Params, x, positions, *, n_heads, n_kv, head_dim, window=0,
         out = attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                         positions, cache["pos"], window=window,
                         q_chunk=q_chunk, softmax_dtype=softmax_dtype)
-        return out.reshape(b, s, -1) @ p["wo"], cache
+        return merge_heads(out) @ p["wo"], cache
     out = attention(q, k, v, positions, positions, window=window,
                     causal=causal, q_chunk=q_chunk,
                     softmax_dtype=softmax_dtype)
-    return out.reshape(b, s, -1) @ p["wo"], None
+    return merge_heads(out) @ p["wo"], None
 
 
 # ---------------------------------------------------------------------------
@@ -259,8 +426,10 @@ def chunked_xent(x, w_out, labels, *, chunk=512):
 
 def _xent_block(x, w_out, labels):
     logits = (x @ w_out).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    # gold stays [B, S, 1] up to the sum: a DTensor gather over a
+    # vocabulary-sharded dim cannot be indexed down before its reduction
     gold = torch.gather(logits, -1,
-                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
-    valid = (labels >= 0).to(torch.float32)
+                        torch.clamp(labels, min=0).long()[..., None])
+    valid = (labels >= 0).to(torch.float32)[..., None]
     return torch.sum(valid), torch.sum((logz - gold) * valid)

@@ -232,6 +232,24 @@ class Model:
             period = len(cfg.pattern)
             self.n_groups = cfg.n_layers // period
             self.tail_kinds = self.kinds[self.n_groups * period:]
+        # sharding hooks (set by the launcher; launch/mesh.py), off by
+        # default: layer_constraint(p_slice) places each layer's slice of
+        # the stacks, act_constraint(x) the residual stream, at the top of
+        # every layer (every pattern group) of the stacks
+        self.layer_constraint = None
+        self.act_constraint = None
+
+    def set_sharding(self, layer_constraint=None, act_constraint=None):
+        self.layer_constraint = layer_constraint
+        self.act_constraint = act_constraint
+        return self
+
+    def _constrain(self, p_l: Params, x):
+        if self.layer_constraint is not None:
+            p_l = self.layer_constraint(p_l)
+        if self.act_constraint is not None:
+            x = self.act_constraint(x)
+        return p_l, x
 
     # -- init ---------------------------------------------------------------
 
@@ -271,10 +289,10 @@ class Model:
         """One decoder layer's cross K/V over the encoder output [B, F, d]."""
         cfg = self.cfg
         b, f, _ = enc_out.shape
-        ck = (enc_out @ p_l["xattn/wk"].to(cfg.cdtype)).reshape(
-            b, f, cfg.n_kv, cfg.hd)
-        cv = (enc_out @ p_l["xattn/wv"].to(cfg.cdtype)).reshape(
-            b, f, cfg.n_kv, cfg.hd)
+        ck = L.split_heads(enc_out @ p_l["xattn/wk"].to(cfg.cdtype), b, f,
+                           cfg.n_kv, cfg.hd)
+        cv = L.split_heads(enc_out @ p_l["xattn/wv"].to(cfg.cdtype), b, f,
+                           cfg.n_kv, cfg.hd)
         return ck, cv, torch.arange(f, device=enc_out.device)
 
     def _layers(self, fn, x, positions, p: Params, *extra, cache=None):
@@ -300,7 +318,7 @@ class Model:
         kind = self.kinds[0]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
-            p_l = _index(stack, i)
+            p_l, x = self._constrain(_index(stack, i), x)
             c_l = None if cache is None else _index(cache, i)
             # pin the residual stream to the compute dtype
             x = x.to(cfg.cdtype)
@@ -320,9 +338,13 @@ class Model:
             cs = (None if cache is None else
                   [_index(cache["groups"][j], g)
                    for j in range(len(cfg.pattern))])
+            slices = []
+            for j in range(len(cfg.pattern)):
+                p_j, x = self._constrain(_index(stacks[j], g), x)
+                slices.append(p_j)
             # one group's layers as one dict, its leaves keyed "j/<leaf>"
-            p_g = {f"{j}/{k}": v for j in range(len(cfg.pattern))
-                   for k, v in _index(stacks[j], g).items()}
+            p_g = {f"{j}/{k}": v for j, p_j in enumerate(slices)
+                   for k, v in p_j.items()}
             x, aux = self._layers(_group_fn(cfg, cache=cs, pos=pos), x,
                                   positions, p_g, aux, cache=cs)
         for i, kind in enumerate(self.tail_kinds):
@@ -353,7 +375,7 @@ class Model:
         tok = batch["tokens"]
         # gather the f32 rows, then convert (the same values as converting
         # the table first)
-        x = params["embed"][tok].to(cfg.cdtype)
+        x = L.embed(params["embed"], tok).to(cfg.cdtype)
         offset = 0
         if cfg.family == "vlm":
             emb = batch["embeds"].to(cfg.cdtype) @ params[
@@ -416,7 +438,7 @@ class Model:
         ``cache`` in place.  Returns (logits [B, V] f32, cache)."""
         cfg = self.cfg
         b = token.shape[0]
-        x = params["embed"][token].to(cfg.cdtype)[:, None, :]      # [B, 1, d]
+        x = L.embed(params["embed"], token).to(cfg.cdtype)[:, None, :]
         positions = torch.full((b, 1), pos, dtype=torch.int32,
                                device=x.device)
         if self.uniform:

@@ -28,6 +28,7 @@ without the batched two (products with a batch dimension) for the
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, FrozenSet, List, Optional
 
 import torch
@@ -127,25 +128,45 @@ class _Checkpoint(torch.autograd.Function):
             return ctx.body(*full)
 
         primals = [args[i] for i in wrt]
-        if not ctx.ops:
-            _, pull = torch.func.vjp(body, *primals)
-        else:
-            replay = _Replay(ctx.ops, ctx.kept)
-            with replay:
-                _, pull = torch.func.vjp(body, *primals)
-            if replay.used != len(ctx.kept.outputs):
-                raise RuntimeError(
-                    f"remat: the recompute took {replay.used} of the "
-                    f"forward's {len(ctx.kept.outputs)} products")
-        # torch.func.grad runs the backward with create_graph=True: the
-        # graph of the pull would keep this layer's recompute alive until
-        # the whole backward ends.  The gradients are not differentiated
-        # again, so they leave detached and the graph dies here.
-        pulled = [g.detach() for g in pull(grads)]
+        replay = _Replay(ctx.ops, ctx.kept) if ctx.ops else None
+        pulled = _recompute(body, primals, grads,
+                            replay or contextlib.nullcontext())
+        if replay is not None and replay.used != len(ctx.kept.outputs):
+            raise RuntimeError(
+                f"remat: the recompute took {replay.used} of the "
+                f"forward's {len(ctx.kept.outputs)} products")
         out = [None] * len(args)
         for i, g in zip(wrt, pulled):
             out[i] = g
         return (None, None, None) + tuple(out)
+
+
+def _recompute(body: Callable, primals, grads, replay) -> List[torch.Tensor]:
+    """The body run again (under ``replay``) and its output gradients
+    pulled back to ``primals``: through ``torch.func.vjp`` inside a
+    ``torch.func`` transform, else with plain autograd (a DTensor mesh's
+    gradient, whose redistributions are autograd Functions that
+    ``torch.func`` refuses)."""
+    if torch._C._are_functorch_transforms_active():
+        with replay:
+            _, pull = torch.func.vjp(body, *primals)
+        # torch.func.grad runs the backward with create_graph=True: the
+        # graph of the pull would keep this layer's recompute alive until
+        # the whole backward ends.  The gradients are not differentiated
+        # again, so they leave detached and the graph dies here.
+        return [g.detach() for g in pull(grads)]
+    with torch.enable_grad():
+        leaves = [p.detach().requires_grad_() for p in primals]
+        with replay:
+            outs = body(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads)
+                 if g is not None and o.requires_grad]
+        pulled = torch.autograd.grad([o for o, _ in pairs], leaves,
+                                     [g for _, g in pairs],
+                                     allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, pulled)]
 
 
 def checkpoint(body: Callable, ops: FrozenSet, *args: torch.Tensor):

@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, _init, softplus
+from repro_torch.models.layers import Params, _init, rows_local, softplus
 
 
 def d_inner(d_model, expand=2):
@@ -80,7 +80,12 @@ def chunked_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
 
 def causal_conv(xi: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over the sequence, summed tap by tap as the
-    reference's ``sum(...)`` does.  xi: [B, S, D]; conv_w: [K, D]."""
+    reference's ``sum(...)`` does.  xi: [B, S, D]; conv_w: [K, D].  On
+    DTensors each rank convolves its own rows (``rows_local``)."""
+    return rows_local(_causal_conv, (xi,), (conv_w,))
+
+
+def _causal_conv(xi: torch.Tensor, conv_w: torch.Tensor) -> torch.Tensor:
     k, s = conv_w.shape[0], xi.shape[1]
     pad = F.pad(xi, (0, 0, k - 1, 0))
     return sum(pad[:, i:i + s] * conv_w[i] for i in range(k))
@@ -100,6 +105,20 @@ def _ssm_coeffs(p: Params, xc, *, d_state):
     return a, bx.to(torch.float32), C
 
 
+_SCAN_PARAMS = ("x_proj", "dt_proj", "dt_bias", "A_log")
+
+
+def _scan(xc, *leaves, d_state: int, chunk: int):
+    """The selective scan of the post-conv ``xc`` [B, S, di]: y [B, S,
+    di] in xc's dtype."""
+    p = dict(zip(_SCAN_PARAMS, leaves))
+    a, bx, C = _ssm_coeffs(p, xc, d_state=d_state)
+    h0 = torch.zeros((xc.shape[0], xc.shape[-1], d_state),
+                     dtype=torch.float32, device=xc.device)
+    h_all = chunked_scan(a, bx, h0, chunk)
+    return torch.einsum("bsdn,bsn->bsd", h_all.to(xc.dtype), C)
+
+
 def mamba_apply(p: Params, x, *, d_state=16, chunk=256,
                 state: Optional[Params] = None):
     """x: [B, S, d_model]. Train/prefill when state is None (full sequence);
@@ -108,7 +127,6 @@ def mamba_apply(p: Params, x, *, d_state=16, chunk=256,
 
     Returns (y, state or None).
     """
-    b, s, d = x.shape
     di = p["out_proj"].shape[0]
     xz = x @ p["in_proj"]
     xi, z = xz[..., :di], xz[..., di:]
@@ -116,11 +134,9 @@ def mamba_apply(p: Params, x, *, d_state=16, chunk=256,
 
     if state is None:
         xc = F.silu(causal_conv(xi, conv_w))
-        a, bx, C = _ssm_coeffs(p, xc, d_state=d_state)
-        h0 = torch.zeros((b, di, d_state), dtype=torch.float32,
-                         device=x.device)
-        h_all = chunked_scan(a, bx, h0, chunk)
-        y = torch.einsum("bsdn,bsn->bsd", h_all.to(x.dtype), C)
+        # on DTensors each rank scans its own rows (``rows_local``)
+        y = rows_local(_scan, (xc,), tuple(p[k] for k in _SCAN_PARAMS),
+                       d_state=d_state, chunk=chunk)
     else:
         # O(1) decode step
         window = torch.cat([state["conv"], xi], dim=1)         # [B, K, di]

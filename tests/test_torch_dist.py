@@ -710,12 +710,32 @@ def _without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _mesh_entry(make):
+    """``make(device_type=...)`` over a fake process group of one rank,
+    the group torn down after."""
+    def call(device=None):
+        import torch.distributed as tdist
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        tdist.init_process_group("fake", store=FakeStore(), rank=0,
+                                 world_size=1)
+        try:
+            return make(device_type=device)
+        finally:
+            tdist.destroy_process_group()
+    return call
+
+
 @pytest.mark.parametrize("entry", ["toy_mesh_train", "make_train_step",
-                                   "init_dist_state", "toy_params"])
+                                   "init_dist_state", "toy_params",
+                                   "make_worker_mesh", "make_host_mesh"])
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, entry):
+    from repro_torch.launch import mesh as tmesh
     _without_cuda(monkeypatch)
     params = convert.toy_params(_as_numpy(_jax_params(1, 8)), device="cpu")
     calls = {
+        "make_worker_mesh": _mesh_entry(lambda **kw: tdist.make_worker_mesh(
+            (1,), ("pod",), **kw)),
+        "make_host_mesh": _mesh_entry(tmesh.make_host_mesh),
         "toy_mesh_train": lambda **kw: experiments.toy_mesh_train(
             n_layers=1, d=8, steps=1, n_workers=2, **kw),
         "make_train_step": lambda **kw: tdist.make_train_step(
@@ -749,13 +769,19 @@ def test_unported_options_raise(kw):
 
 
 def test_zero_fault_config_runs_and_other_helpers_raise():
-    tdist.make_train_step(ToyMLP(1, 8), topt.sgd(0.1),
-                          tdist.DistConfig(faults=tfaults.FaultConfig()), 2,
-                          device="cpu")
-    for helper in (tdist.shard_map_compat, tdist.make_worker_mesh,
-                   tdist.state_specs, tdist.state_shardings):
-        with pytest.raises(NotImplementedError, match="dist_pg"):
-            helper()
+    """The mesh helpers no longer raise (the sharded mesh came in with
+    launch/mesh.py): state_specs needs no process group, and splits the
+    per-worker stacks over the worker axis alone."""
+    from repro_torch.launch.mesh import Spec
+    dcfg = tdist.DistConfig(faults=tfaults.FaultConfig())
+    model = ToyMLP(1, 8)
+    init_state, _ = tdist.make_train_step(model, topt.sgd(0.1), dcfg, 2,
+                                          device="cpu")
+    state = init_state(model.init(torch.Generator().manual_seed(0)))
+    specs = tdist.state_specs(dcfg, state)
+    assert specs.artemis.h == Spec("pod") == specs.artemis.prev_active
+    assert specs.artemis.hbar == Spec() == specs.step
+    assert set(specs.params.values()) == {Spec()}
     # every codec of the registry is ported: the wire builds any of them
     assert tdist.DistConfig(codec="sparsify").wire_codec(64).name == \
         "sparsify(q=0.25)"

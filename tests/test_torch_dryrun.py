@@ -151,8 +151,8 @@ def test_overrides_parse_and_reach_every_combo(monkeypatch):
 
     monkeypatch.setattr(dryrun.subprocess, "Popen", Done)
     monkeypatch.setattr(dryrun, "_combos",
-                        lambda workers: iter([("starcoder2-7b", "train_4k",
-                                               "none")]))
+                        lambda: iter([("starcoder2-7b", "train_4k", None,
+                                       "none")]))
     dryrun.run_all(1, 8, cfg_override=["remat=False"])
     assert cmds[0][-2:] == ["--cfg-override", "remat=False"]
 
@@ -175,12 +175,17 @@ def test_live_bytes_tracks_a_hand_counted_peak():
 
 
 def test_skips_and_the_mesh_are_refused(capsys):
+    """Skips, on one card and on a mesh (before any process group is made),
+    and a mesh the reference does not have, which argparse refuses."""
     rec = dryrun.lower_one("whisper-tiny", "long_500k")
     assert rec["status"] == "skip"
+    rec = dryrun.lower_mesh("whisper-tiny", "long_500k", "multipod")
+    assert rec["status"] == "skip" and rec["chips"] == 512
+    assert rec["mesh"] == "multipod"
     with pytest.raises(SystemExit):
-        dryrun.main(["--mesh", "pod", "--arch", "starcoder2-7b", "--shape",
-                     "train_4k"])
-    assert "ROADMAP" in capsys.readouterr().err
+        dryrun.main(["--mesh", "galaxy", "--arch", "starcoder2-7b",
+                     "--shape", "train_4k"])
+    assert "invalid choice" in capsys.readouterr().err
 
 
 def test_cli_and_report(tmp_path, capsys):

@@ -378,7 +378,10 @@ def test_train_cli_ranks_resume_is_bit_for_bit(tmp_path, one_thread_ranks):
     (("--ranks", "2"), "needs a wire"),
     (("--ranks", "3", "--dist", "artemis"), "does not split"),
     (("--ranks", "2", "--workers", "4", "--dist", "artemis"), "sets W"),
-    (("--mesh", "4x2"), "A14")])
+    (("--mesh", "3x2", "--dist", "artemis"), "does not split over 3 data"),
+    (("--mesh", "2x2", "--ranks", "2"), "--mesh sets the ranks"),
+    (("--mesh", "2x2", "--workers", "3"), "the workers are its 2 data"),
+    (("--mesh", "2by2"), "expected DxM")])
 def test_train_cli_refuses(extra, msg, capsys):
     with pytest.raises(SystemExit):
         _train(*extra)
@@ -462,9 +465,13 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, entry):
 
 
 def test_train_help_names_the_missing_mesh(capsys):
+    """The mesh is no longer missing: the help describes it, and no option
+    overrides the backend that the device picks."""
     with pytest.raises(SystemExit):
         train.main(["--help"])
-    assert "--mesh" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "--mesh" in out and "DxM" in out and "--backend" not in out
+    assert "not ported" not in out
 
 
 if __name__ == "__main__":
