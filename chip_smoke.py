@@ -165,6 +165,8 @@ Phases (each fails the run with a non-zero exit if it goes wrong):
    ranks of a fake process group), run in a process of its own started
    after the build, beside the card's phases: one rank's bytes, FLOPs and
    collective bytes by mesh axis, the process never touching the card;
+   its attention block a rank (``MULTIPOD_BLOCKS``: 9 heads on 32 lanes)
+   and its FLOPs under ``MULTIPOD_REPLICATED_FLOPS``;
 28. bench: ``python -m repro_torch.bench --fast`` in a subprocess on the
    card (every suite: the paper's figures, the kernels, the sweep engine
    and the mesh wire, the fault defenses), exit 0, every kernel row
@@ -322,6 +324,12 @@ MESH_PROBE_OPS = ("all_gather_into_tensor", "reduce_scatter_tensor",
                   "all_reduce")
 # the multi-pod dry run's row (A15), at full width, in a process of its own
 MULTIPOD_ROW = ("starcoder2-7b", "train_4k", "multipod", "artemis")
+# its attention block a model rank, (query heads, KV heads, head-dim lanes):
+# 36 heads over 16 as the reference's compiled program splits them
+# (layers.head_partition), and the row's FLOPs with every model rank on all
+# 36 heads, which that split must undercut
+MULTIPOD_BLOCKS = [[9, 1, 32]]
+MULTIPOD_REPLICATED_FLOPS = 1.448e15
 
 
 class SmokeFailure(Exception):
@@ -3086,11 +3094,21 @@ def dryrun_phase(dev, serve_res, train_res, multipod):
           f"dry run {MULTIPOD_ROW}: {rec}")
     check(not rec["cuda_initialized"] and rec["cuda_bytes"] == 0,
           f"dry run {MULTIPOD_ROW}: its process used the card")
+    check(rec["attn_blocks"] == MULTIPOD_BLOCKS
+          and rec["flops"] < MULTIPOD_REPLICATED_FLOPS,
+          f"dry run {MULTIPOD_ROW}: attention blocks {rec['attn_blocks']} "
+          f"(expected {MULTIPOD_BLOCKS}), {rec['flops']:.4g} FLOPs "
+          f"(expected under {MULTIPOD_REPLICATED_FLOPS:.4g})")
     out["multipod"] = {k: rec[k] for k in (
         "param_bytes", "optimizer_bytes", "artemis_bytes", "peak_bytes",
         "flops", "bytes_accessed", "coll_bytes", "comm_counts", "compute_s",
-        "memory_s", "collective_s", "dominant", "trace_s", "wall_s")}
-    log(f"dry run {' x '.join(MULTIPOD_ROW)}, one of 512 ranks: params "
+        "memory_s", "collective_s", "dominant", "trace_s", "wall_s",
+        "attn_blocks")}
+    heads, kv, lanes = rec["attn_blocks"][0]
+    log(f"dry run {' x '.join(MULTIPOD_ROW)}, one of 512 ranks: attention "
+        f"{heads} query heads, {kv} KV heads and {lanes} head-dim lanes a "
+        f"rank, {rec['flops']:.4g} FLOPs (all 36 heads a rank: "
+        f"{MULTIPOD_REPLICATED_FLOPS:.4g}); params "
         f"{rec['param_bytes']}, optimizer {rec['optimizer_bytes']}, artemis "
         f"{rec['artemis_bytes']} bytes, peak estimate {rec['peak_bytes']} "
         f"bytes; {rec['flops']:.4g} FLOPs, {rec['bytes_accessed']:.4g} bytes "

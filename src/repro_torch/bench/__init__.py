@@ -19,7 +19,7 @@ import dataclasses
 import os
 import statistics
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Collection, List, Optional, Tuple
 
 import torch
 
@@ -65,21 +65,23 @@ def host_us(fn: Callable, device: torch.device, reps: int = 5,
 
 
 def device_trace(fn: Callable, calls: int = 25, pad: int = 8,
-                 tries: int = 3) -> Tuple[Optional[float], float, List[str]]:
+                 tries: int = 3, skip: Collection[str] = ()
+                 ) -> Tuple[Optional[float], float, List[str]]:
     """The CUDA kernels that ``calls`` calls of ``fn`` ran, from the
     ``torch.profiler`` trace: (summed device µs per call, kernels per call,
     kernel names), or (None, 0, []) if ``tries`` traces in a row hold no
     kernel (a process that has opened many profiler sessions now and then
     gets an empty one).  The calls run between ``pad`` spin kernels on each
-    side, left out of the sums: a trace can drop kernels at its ends."""
+    side, left out of the sums: a trace can drop kernels at its ends.
+    Kernels named in ``skip`` are left out too."""
     for _ in range(tries):
-        out = _trace(fn, calls, pad)
+        out = _trace(fn, calls, pad, skip)
         if out[0] is not None:
             return out
     return out
 
 
-def _trace(fn: Callable, calls: int, pad: int):
+def _trace(fn: Callable, calls: int, pad: int, skip: Collection[str]):
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -93,7 +95,7 @@ def _trace(fn: Callable, calls: int, pad: int):
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.events() if e.device_type == cuda
-              and "spin_kernel" not in e.name]
+              and "spin_kernel" not in e.name and e.name not in skip]
     if not events:
         return None, 0.0, []
     us = sum(e.time_range.elapsed_us() for e in events) / calls

@@ -13,7 +13,19 @@ bound (the bytes the function must move, each input read once and each
 output written once, at ``launch/roofline.HBM_BW``, 3.35 TB/s), the plain
 version's device µs, and, where one PyTorch call computing the same
 function runs as one kernel, that call's device µs.  Every kernel is first
-held to its plain version on the same inputs.  The reference's traffic rows
+held to its plain version on the same inputs.  Each row also says where
+the calls find their inputs, as the main path finds them: B1, B2, B4 and
+``worker_sum`` warm (one set of a few MB, L2-resident, as the simulator's
+round calls them on the same buffers), B3 cold by size (hundreds of MB a
+call); of the ops step's (``ops.compress``, ``ops.memory_update``,
+``experiments.compressed_sgd_step``), which passes 25 leaves through each
+call, B5's x and B7's w cold (each call takes the next of enough copies
+to pass the 50 MB L2 four times over), and what the step wrote just
+before warm: B5's uniforms and B7's levels and scales, drawn and encoded
+before each call (``Case.prep``, whose kernels the row leaves out), and
+B6's levels and scales, one set read by every call.  The three hold each
+output for as many calls, as the step holds its leaves' outputs, so each
+call writes to fresh addresses.  The reference's traffic rows
 follow: B1 against the unfused encode, decode and update it replaces, and
 the compression API's wire ratio.  ``b1_probe`` times B1 and B5 at the
 probe [16384, 4096] (ROADMAP §B item 3).
@@ -25,7 +37,10 @@ with fewer calls a trace.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -58,6 +73,10 @@ TOY = {"b1": (64, 40), "b2": (4, 8, 40), "wsum": (8, 4, 40),
        "ops": (512, 256), "narrow": (256, 8), "probe": (512, 512)}
 
 
+L2_BYTES = 50e6            # the H100 SXM's L2
+COLD_BYTES = 4 * L2_BYTES  # a cold input's copies together
+
+
 @dataclasses.dataclass
 class Case:
     name: str
@@ -66,6 +85,38 @@ class Case:
     bytes: float                    # each input read once, each output once
     library: Optional[Callable] = None
     library_name: str = ""
+    # run before every call of kernel, plain version and library call: it
+    # writes the inputs that the main path writes just before the call
+    # (their kernels are left out of the row) and moves the cold ones on
+    prep: Optional[Callable] = None
+    keep: int = 0                   # calls an output is held for
+    where: str = ""                 # where the calls find their inputs
+
+    @property
+    def inputs(self) -> str:
+        """Where the calls find their inputs, for the row."""
+        if self.where:
+            return self.where
+        if self.bytes > L2_BYTES:
+            return (f"inputs cold: {self.bytes / 1e6:.0f} MB a call > the "
+                    f"{L2_BYTES / 1e6:.0f} MB L2")
+        return ("inputs warm: one set, L2-resident, as the simulator's "
+                "round finds them")
+
+
+def copies(ctx: Context, nbytes: float) -> int:
+    """How many copies of a cold input of ``nbytes`` the calls rotate
+    through: on the card enough to pass the L2 (``COLD_BYTES``), so a copy
+    is evicted before its turn comes again; one on the CPU, which times
+    the plain version alone."""
+    return max(2, math.ceil(COLD_BYTES / nbytes)) if ctx.cuda else 1
+
+
+def _cold(name: str, items: list) -> str:
+    mb = sum(t.numel() * t.element_size() for t in items) / 1e6
+    return (f"{name} cold: {len(items)} copies rotated, {mb:.0f} MB > the "
+            f"{L2_BYTES / 1e6:.0f} MB L2; each output held for "
+            f"{len(items)} calls, as the step holds its leaves'")
 
 
 def _shapes(ctx: Context) -> Dict[str, tuple]:
@@ -162,14 +213,25 @@ def b4_case(dev, shape, seed: int) -> Case:
                 n + 4.0 * (n // shape[-1]) + 4.0 * (n // shape[0]))
 
 
-def b5_case(dev, shape, seed: int) -> Case:
+def b5_case(dev, shape, seed: int, n: int = 1) -> Case:
+    """B5 on ``n`` copies of x, taken in turn; before each call the
+    uniforms are drawn anew from a generator, as ``ops.encode`` draws
+    them."""
     g = _gen(dev, seed)
-    x = torch.randn(shape, generator=g, device=dev)
-    u = torch.rand(shape, generator=g, device=dev)
+    xs = [torch.randn(shape, generator=g, device=dev) for _ in range(n)]
+    u = torch.empty(shape, device=dev)
+    turn, at = itertools.count(), {}
+
+    def prep():
+        at["x"] = xs[next(turn) % n]
+        u.uniform_(generator=g)
+
     return Case(f"squant_encode {list(shape)} in {TILE}",
-                lambda: squant_encode(x, u, s=1, block=TILE),
-                lambda: squant_encode_plain(x, u, s=1, block=TILE),
-                9.0 * x.numel() + 4.0 * _tiles(shape, TILE))
+                lambda: squant_encode(at["x"], u, s=1, block=TILE),
+                lambda: squant_encode_plain(at["x"], u, s=1, block=TILE),
+                9.0 * u.numel() + 4.0 * _tiles(shape, TILE), prep=prep,
+                keep=n, where=(f"{_cold('x', xs)}; u warm, drawn before each call"
+                       if n > 1 else ""))
 
 
 def _encoded(dev, shape, seed: int, block):
@@ -181,25 +243,50 @@ def _encoded(dev, shape, seed: int, block):
     return w, q, sc
 
 
-def b6_case(dev, shape, seed: int, block=TILE) -> Case:
+def b6_case(dev, shape, seed: int, block=TILE, n: int = 1) -> Case:
+    """B6 on one set of levels and scales, each output held for ``n``
+    calls."""
     _, q, sc = _encoded(dev, shape, seed, block)
     qv, sv = _tile_views(shape, block)
     return Case(f"squant_decode {list(shape)} in {tuple(block)}",
                 lambda: squant_decode(q, sc, block=block),
                 lambda: squant_decode_plain(q, sc, block=block),
                 5.0 * q.numel() + 4.0 * _tiles(shape, block),
-                lambda: torch.mul(q.view(qv), sc.view(sv)), "torch.mul")
+                lambda: torch.mul(q.view(qv), sc.view(sv)), "torch.mul",
+                keep=n, where=(
+                    f"q and scales warm: one set, L2-resident, as the "
+                    f"encode just before leaves them in ops.compress and "
+                    f"ops.memory_update; each output held for {n} calls, "
+                    f"as those hold their leaves'" if n > 1 else ""))
 
 
-def b7_case(dev, shape, seed: int) -> Case:
-    w, q, sc = _encoded(dev, shape, seed, TILE)
+def b7_case(dev, shape, seed: int, n: int = 1) -> Case:
+    """B7 on ``n`` copies of w, taken in turn; before each call the levels
+    and scales are encoded anew (B5 on one x and u), as
+    ``experiments.compressed_sgd_step`` encodes each leaf's gradient just
+    before its apply."""
+    g = _gen(dev, seed)
+    x, u = torch.randn(shape, generator=g, device=dev), \
+        torch.rand(shape, generator=g, device=dev)
+    ws = [torch.randn(shape, generator=g, device=dev) for _ in range(n)]
     qv, sv = _tile_views(shape, TILE)
+    turn, at = itertools.count(), {}
+
+    def prep():
+        at["w"] = ws[next(turn) % n]
+        at["q"], at["sc"] = squant_encode(x, u, s=1, block=TILE)
+
     return Case(f"dequant_apply {list(shape)} in {TILE}",
-                lambda: dequant_apply(w, q, sc, 0.01, block=TILE),
-                lambda: dequant_apply_plain(w, q, sc, 0.01, block=TILE),
-                9.0 * q.numel() + 4.0 * _tiles(shape, TILE),
-                lambda: torch.addcmul(w.view(qv), q.view(qv), sc.view(sv),
-                                      value=-0.01), "torch.addcmul")
+                lambda: dequant_apply(at["w"], at["q"], at["sc"], 0.01,
+                                      block=TILE),
+                lambda: dequant_apply_plain(at["w"], at["q"], at["sc"], 0.01,
+                                            block=TILE),
+                9.0 * x.numel() + 4.0 * _tiles(shape, TILE),
+                lambda: torch.addcmul(at["w"].view(qv), at["q"].view(qv),
+                                      at["sc"].view(sv), value=-0.01),
+                "torch.addcmul", prep=prep, keep=n,
+                where=(f"{_cold('w', ws)}; q and scales warm, encoded "
+                       f"before each call" if n > 1 else ""))
 
 
 def _agrees(out, ref) -> Tuple[bool, float]:
@@ -220,15 +307,19 @@ def _agrees(out, ref) -> Tuple[bool, float]:
     return ok, err
 
 
-def _one_kernel_us(fn: Callable, calls: int) -> Optional[float]:
-    """Device µs of one PyTorch call, where it runs as one kernel."""
-    us, per_call, names = device_trace(fn, calls)
+def _one_kernel_us(fn: Callable, calls: int,
+                   skip=frozenset()) -> Optional[float]:
+    """Device µs of one PyTorch call, where it runs as one kernel (the
+    kernels named in ``skip`` left out)."""
+    us, per_call, names = device_trace(fn, calls, skip=skip)
     return us if per_call == 1 and len(names) == 1 else None
 
 
 def measure(case: Case, ctx: Context) -> Tuple[float, str]:
     """(row value, derived) of one case."""
     bound_us = case.bytes / HBM_BW * 1e6
+    if case.prep is not None:
+        case.prep()
     if not ctx.cuda:
         plain = host_us(case.plain, ctx.device, reps=1 if ctx.fast else 5)
         return plain, (f"device=cpu: plain version only, no kernel runs on "
@@ -239,16 +330,33 @@ def measure(case: Case, ctx: Context) -> Tuple[float, str]:
         raise AssertionError(f"{case.name}: the kernel differs from its "
                              f"plain version by {err}")
     calls = 5 if ctx.fast else 25
-    us, per_call, names = device_trace(case.kernel, calls)
-    plain_us = device_trace(case.plain, calls)[0]
+    skip, left_out = frozenset(), ""
+    if case.prep is not None:
+        skip = frozenset(device_trace(case.prep, calls)[2])
+        left_out = f"; left out, the inputs' kernels {sorted(skip)}"
+
+    def timed(fn):
+        if case.prep is None and not case.keep:
+            return fn
+        held = collections.deque(maxlen=max(case.keep, 1))
+
+        def call():
+            if case.prep is not None:
+                case.prep()
+            held.append(fn())
+        return call
+
+    us, per_call, names = device_trace(timed(case.kernel), calls, skip=skip)
+    plain_us = device_trace(timed(case.plain), calls, skip=skip)[0]
     lib_us = (None if case.library is None
-              else _one_kernel_us(case.library, calls))
+              else _one_kernel_us(timed(case.library), calls, skip))
     lib = (f" library_us={fmt(lib_us)} ({case.library_name})"
            if case.library is not None else " library_us=none")
     derived = (f"device_us={fmt(us)} (torch.profiler CUDA trace, "
                f"{per_call:g} kernels a call {names}) bound_us="
                f"{bound_us:.3f} (bytes at {HBM_BW / 1e12:.2f} TB/s) "
-               f"plain_us={fmt(plain_us)}{lib} max_abs_err={err:.3g}")
+               f"plain_us={fmt(plain_us)}{lib} max_abs_err={err:.3g}; "
+               f"{case.inputs}{left_out}")
     return (float("nan") if us is None else us), derived
 
 
@@ -262,6 +370,7 @@ def _rows(cases: List[Tuple[str, Case]], ctx: Context) -> List[Row]:
 
 def kernel_suite(ctx: Context) -> List[Row]:
     dev, sh = ctx.device, _shapes(ctx)
+    n = copies(ctx, 4.0 * math.prod(sh["ops"]))     # an f32 leaf's copies
     cases = [("b1_fused_memory_update", b1_case(dev, sh["b1"], 0)),
              ("b2_ring_sum", b2_case(dev, sh["b2"], 1)),
              ("worker_sum", wsum_case(dev, sh["wsum"], 2)),
@@ -269,11 +378,11 @@ def kernel_suite(ctx: Context) -> List[Row]:
              ("b3_hop0", hop_case(dev, sh["hop"], 4, 0)),
              ("b3_hop1", hop_case(dev, sh["hop"], 4, 1)),
              ("b4_bucket_ring_sum", b4_case(dev, sh["b4"], 5)),
-             ("b5_squant_encode", b5_case(dev, sh["ops"], 6)),
-             ("b6_squant_decode", b6_case(dev, sh["ops"], 7)),
+             ("b5_squant_encode", b5_case(dev, sh["ops"], 6, n=n)),
+             ("b6_squant_decode", b6_case(dev, sh["ops"], 7, n=n)),
              ("b6_squant_decode_narrow",
-              b6_case(dev, sh["ops"], 8, block=sh["narrow"])),
-             ("b7_dequant_apply", b7_case(dev, sh["ops"], 9))]
+              b6_case(dev, sh["ops"], 8, block=sh["narrow"], n=n)),
+             ("b7_dequant_apply", b7_case(dev, sh["ops"], 9, n=n))]
     rows = _rows(cases, ctx)
     rows += traffic_rows(ctx, sh["ops"])
     return rows

@@ -78,6 +78,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch import configs
 from repro_torch.core import dist
 from repro_torch.launch import roofline as R
+from repro_torch.models import layers as L
 from repro_torch.models.model import build_model, flatten_params
 from repro_torch.optim import adam, sgd
 
@@ -147,14 +148,21 @@ class RankCounter(LiveBytes):
     collectives and local ops of this rank, which come here on local
     tensors and are counted.  ``comm`` (a
     ``torch.distributed.tensor.debug.CommDebugMode``) counts the same
-    collectives by op.  ``axes`` maps a process group's name to its mesh
-    axis; bytes are each collective's result on this rank (a send's
-    payload)."""
+    collectives by op.  A collective counts under the axis of ``mesh``
+    whose group it is, or whose row of ranks holds all of its group's (a
+    sub-group of an axis, as the attention's runs of model ranks), else
+    under "other"; bytes are each collective's result on this rank (a
+    send's payload)."""
 
-    def __init__(self, axes: Dict[str, str]):
+    def __init__(self, mesh):
         super().__init__()
+        import torch.distributed as tdist
         from torch.distributed.tensor.debug import CommDebugMode
-        self.axes, self.flops = axes, 0.0
+        names = mesh.mesh_dim_names
+        self.axes = {mesh.get_group(a).group_name: a for a in names}
+        self.rows = {a: set(tdist.get_process_group_ranks(mesh.get_group(a)))
+                     for a in names}
+        self.flops = 0.0
         self.coll: Dict[str, Dict[str, float]] = {}
         self.comm = CommDebugMode()
 
@@ -177,9 +185,25 @@ class RankCounter(LiveBytes):
                 a = unbox(a)
             name = a if isinstance(a, str) else getattr(a, "group_name",
                                                         None)
-            if name in self.axes:
+            if name is not None and name not in self.axes:
+                self.axes[name] = self._row_of(name)
+            if self.axes.get(name):
                 return self.axes[name]
         return "other"
+
+    def _row_of(self, name: str) -> Optional[str]:
+        """The axis whose row holds every rank of the group named
+        ``name`` (more than one rank: a lone rank lies in every row);
+        ``None`` for a group of no row, or a name of no group."""
+        import torch.distributed as tdist
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        try:
+            ranks = set(tdist.get_process_group_ranks(
+                _resolve_process_group(name)))
+        except RuntimeError:            # an argument that names no group
+            return None
+        return next((a for a, row in self.rows.items()
+                     if len(ranks) > 1 and ranks <= row), None)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -334,7 +358,8 @@ def lower_mesh(arch: str, shape_name: str, mesh_kind: str,
     step is ``dist_pg.make_train_step(mesh=)``: plain data parallelism
     with ``--dist none``, else Artemis over the worker axis (``pod`` on
     the multi-pod mesh, ``data`` on one pod).  Every count is this rank's
-    (``RankCounter``)."""
+    (``RankCounter``); ``attn_blocks`` lists the attention blocks it ran
+    (query heads, KV heads, head-dim lanes; ``layers.recording_blocks``)."""
     from repro_torch.core import dist_pg
     from repro_torch.launch import mesh as M
     from repro_torch.models import moe as MOE
@@ -350,7 +375,6 @@ def lower_mesh(arch: str, shape_name: str, mesh_kind: str,
     _fake_group(MESH_RANKS[mesh_kind])
     mesh = M.make_production_mesh(multi_pod=mesh_kind == "multipod",
                                   device_type="cpu")
-    axes = {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
     model = build_model(cfg)
     MOE.set_moe_sharding(cfg.family == "moe")
     dcfg = None
@@ -371,8 +395,8 @@ def lower_mesh(arch: str, shape_name: str, mesh_kind: str,
             params = {k: M.distribute(v, pshard[k]) for k, v in full.items()}
             del full
             specs = tree_map(_fake, configs.input_specs(cfg, shape, model))
-            counter, state = RankCounter(axes), {}
-            with counter:
+            counter, state = RankCounter(mesh), {}
+            with counter, L.recording_blocks() as blocks:
                 if shape.kind == "train":
                     data = {k: M.distribute(v, sh) for (k, v), sh in zip(
                         specs.items(),
@@ -417,7 +441,9 @@ def lower_mesh(arch: str, shape_name: str, mesh_kind: str,
             "optimizer_bytes": state.get("optimizer", 0),
             "artemis_bytes": state.get("artemis", 0),
             "peak_bytes": counter.peak, "fits_h100": counter.peak < H100_BYTES,
-            "comm_counts": counts, **rl.as_dict()}
+            "comm_counts": counts,
+            "attn_blocks": [list(b) for b in sorted(set(blocks))],
+            **rl.as_dict()}
 
 
 @contextlib.contextmanager

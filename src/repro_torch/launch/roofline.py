@@ -217,15 +217,19 @@ def markdown_table(rows) -> str:
 
 def mesh_table(rows) -> str:
     """The mesh rows, one rank's terms, as the reference's table prints
-    them, with the rank's peak estimate."""
+    them, with the rank's peak estimate and its attention blocks (query
+    heads / KV heads / head-dim lanes)."""
     hdr = ("| arch | shape | mesh | dist | kind | compute (s) | memory (s) | "
-           "collective (s) | dominant | MODEL/counted flops | peak (GB) |\n"
-           "|---|---|---|---|---|---|---|---|---|---|---|\n")
+           "collective (s) | dominant | MODEL/counted flops | peak (GB) | "
+           "attention a rank |\n"
+           "|---|---|---|---|---|---|---|---|---|---|---|---|\n")
     lines = [
         f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
         f"{r.get('dist', 'none')} | {r['kind']} | {r['compute_s']:.3e} | "
         f"{r['memory_s']:.3e} | {r['collective_s']:.3e} | "
         f"**{r['dominant']}** | {r['useful_ratio']:.2f} | "
-        f"{r['peak_bytes'] / 1e9:.2f} |"
+        f"{r['peak_bytes'] / 1e9:.2f} | "
+        f"{', '.join('/'.join(map(str, b)) for b in r.get('attn_blocks', []))}"
+        f" |"
         for r in rows]
     return hdr + "\n".join(lines)

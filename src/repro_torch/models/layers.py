@@ -12,6 +12,7 @@ once.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -136,130 +137,289 @@ def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
 
 
 def attention(q, k, v, q_pos, k_pos, *, window: int = 0, q_chunk: int = 512,
-              causal: bool = True, softmax_dtype=torch.float32):
+              causal: bool = True, softmax_dtype=torch.float32, lanes=None):
     """q: [B, Sq, H, D]; k, v: [B, Sk, KV, D]; grouped-query attention.
 
     Loops over query chunks of ``q_chunk`` when Sq is a multiple of it (and
     longer); each chunk attends to the full K/V with a position mask.
+    ``lanes``: the process group over which D is split (each rank holds its
+    own lanes of q, k and v): the score products are summed over it and
+    the output gathered, so the result holds every lane; the scale is the
+    whole head dim's.
     """
     b, sq, h, d = q.shape
     kv = k.shape[2]
     assert h % kv == 0
     rep = h // kv
-    scale = d ** -0.5
+    scale = (d * (1 if lanes is None else lanes.size())) ** -0.5
     if q_pos.dim() == 1:
         q_pos = q_pos.expand(b, sq)
     if k_pos.dim() == 1:
         k_pos = k_pos.expand(b, k_pos.shape[0])
     if sq <= q_chunk or sq % q_chunk != 0:
         return _attn_block(q, k, v, q_pos, k_pos, rep, scale, window, causal,
-                           softmax_dtype)
+                           softmax_dtype, lanes)
     outs = [_attn_block(q[:, i:i + q_chunk], k, v, q_pos[:, i:i + q_chunk],
-                        k_pos, rep, scale, window, causal, softmax_dtype)
+                        k_pos, rep, scale, window, causal, softmax_dtype,
+                        lanes)
             for i in range(0, sq, q_chunk)]
     return torch.cat(outs, dim=1)
 
 
 def _attn_block(q, k, v, q_pos, k_pos, rep, scale, window, causal,
-                softmax_dtype):
-    from torch.distributed.tensor import DTensor
-    if isinstance(q, DTensor):
-        return _sharded_attn_block(q, k, v, q_pos, k_pos, rep, scale,
-                                   window, causal, softmax_dtype)
+                softmax_dtype, lanes=None):
     b, sq, h, d = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, sq, kv, rep, d)
     # grouped attention without materialising repeated K/V
-    scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k).to(softmax_dtype) * scale
+    scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k)
+    if lanes is not None:       # summed at the wider of the two dtypes
+        scores = _GroupSum.apply(scores.to(torch.promote_types(
+            scores.dtype, softmax_dtype)), lanes)
+    scores = scores.to(softmax_dtype) * scale
     mask = _mask(q_pos, k_pos, window, causal)
     scores = torch.where(mask[:, None, None], scores,
                          torch.finfo(softmax_dtype).min)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkrqs,bskd->bqkrd", probs, v)
-    return out.reshape(b, sq, h, d)
+    if lanes is not None:
+        out = _GroupGather.apply(out, lanes)
+    return out.reshape(b, sq, h, out.shape[-1])
 
 
-def _sharded_attn_block(q, k, v, q_pos, k_pos, rep, scale, window, causal,
-                        softmax_dtype):
-    """``_attn_block`` on DTensors, each rank on its own batch rows and
-    query heads: attention is independent across both.  On each mesh dim
-    the batch (dim 0) stays split where q, k and v all split it; q's head
-    split (dim 2) stays, and k and v keep theirs there too where they split
-    their heads the same way, else they are gathered on that dim (their
-    heads need not divide it where the query heads do); every other dim
-    is replicated.  The block then runs on the local tensors, each rank's
-    query heads against the KV heads their groups read (``_local_kv``).
-    DTensor's own einsum would flatten a sharded head dim into the batch,
-    which some versions refuse."""
+# ---------------------------------------------------------------------------
+# Attention on the model axis: each rank on its part of the heads
+# ---------------------------------------------------------------------------
+
+def head_partition(ways: int, n_heads: int, n_kv: int, head_dim: int,
+                   k_split: bool):
+    """``(split, lanes)``: over a model axis of ``ways`` ranks that splits
+    the query projection's output, the query heads go ``split`` ways in
+    blocks of ``n_heads // split`` and each block's head dim ``lanes`` ways
+    (the rest of the axis holds copies).  This is the partition XLA gives
+    the reference's ``attn_apply`` (read from its compiled HLO, pinned by
+    ``tests/test_torch_heads.py``):
+
+      * ``split`` is the largest factor of ``ways`` that divides the query
+        heads such that a block is whole KV groups or lies within one
+        (``split`` divides ``n_kv``, or ``n_kv`` divides it and the quotient
+        divides the group size ``n_heads // n_kv``);
+      * the rest of the axis, ``ways // split`` ranks, splits the head dim
+        where a block is one query head, or one KV head whose projection
+        the axis splits as well (``k_split``); it holds copies otherwise.
+
+    starcoder2-7b's (36, 4, 128) over 16: 9 heads a rank and 32 lanes;
+    recurrentgemma-2b's (10, 1, 256): 5 heads on 8 copies; whisper-tiny's
+    (6, 6, 64): 3 heads on 8 copies."""
+    rep = n_heads // n_kv
+    split = max(f for f in range(1, ways + 1)
+                if ways % f == 0 and n_heads % f == 0
+                and (n_kv % f == 0 or (f % n_kv == 0
+                                       and rep % (f // n_kv) == 0)))
+    rest = ways // split
+    if rest > 1 and head_dim % rest == 0 and (
+            n_heads == split or (n_kv == split and k_split)):
+        return split, rest
+    return split, 1
+
+
+_BLOCKS: Optional[list] = None
+
+
+@contextlib.contextmanager
+def recording_blocks():
+    """Within it, each sharded attention appends to the yielded list the
+    block this rank runs: (query heads, KV heads, head-dim lanes)."""
+    global _BLOCKS
+    saved, _BLOCKS = _BLOCKS, []
+    try:
+        yield _BLOCKS
+    finally:
+        _BLOCKS = saved
+
+
+class _GroupSum(torch.autograd.Function):
+    """The sum over a process group; its gradient is the sum of the
+    ranks' gradients (each rank's result feeds its own lanes)."""
+
+    @staticmethod
+    def forward(x, group):
+        return _c10d("all_reduce", x, "sum", group=group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _c10d("all_reduce", g, "sum", group=ctx.group), None
+
+
+class _GroupGather(torch.autograd.Function):
+    """The ranks' blocks concatenated on the last dim, in group order; the
+    gradient of a rank's block is the sum of the ranks' gradients of it."""
+
+    @staticmethod
+    def forward(x, group):
+        return _c10d("all_gather_into_tensor", x.movedim(-1, 0),
+                     group.size(), group=group).movedim(0, -1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _c10d("reduce_scatter_tensor", g.movedim(-1, 0), "sum",
+                     ctx.group.size(), group=ctx.group).movedim(0, -1), None
+
+
+def _c10d(op: str, x: torch.Tensor, *args, group):
+    """A functional collective over ``group``, waited for: the ops that
+    DTensor issues, which the dry run counts."""
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(getattr(c10d, op)(x.contiguous(), *args,
+                                              group.group_name))
+
+
+def _run_group(mesh, dim: int, size: int):
+    """This rank's run of ``size`` consecutive ranks of its row of mesh dim
+    ``dim`` (the runs tile the row): the ranks that share its block of
+    heads, or whose blocks of a projection hold its heads.  Made once a
+    mesh, by its members alone (every member asks at the same point of the
+    step), and kept on the mesh."""
+    import torch.distributed as dist
+    held = mesh.__dict__.setdefault("_attn_run_groups", {})
+    if (dim, size) not in held:
+        row = dist.get_process_group_ranks(mesh.get_group(dim))
+        at = mesh.get_local_rank(dim)
+        assert row[at] == dist.get_rank(), (row, at)
+        first = at - at % size
+        held[(dim, size)] = dist.new_group(row[first:first + size],
+                                           use_local_synchronization=True)
+    return held[(dim, size)]
+
+
+def _split_dim(w) -> Optional[int]:
+    """The mesh dim that splits a projection weight's output dim, if any
+    (``None`` for a plain tensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(w, DTensor):
+        return None
+    dims = [i for i, p in enumerate(w.placements)
+            if isinstance(p, Shard) and p.dim == w.dim() - 1]
+    if len(dims) > 1:
+        raise ValueError(f"a projection's output split over several mesh "
+                         f"dims: {w.placements}")
+    return dims[0] if dims else None
+
+
+def _sharded_attention(q, k, v, q_pos, k_pos, *, n_heads, n_kv, head_dim,
+                       dim, k_split, rope_theta=0.0, rope_k=True, **kw):
+    """``attention`` on DTensors, each rank on its block of the partition
+    of ``head_partition``.  ``q`` is the query projection [B, Sq, H * hd]
+    before RoPE; ``k`` and ``v`` are projections [B, Sk, KV * hd] or a
+    cache [B, Sk, KV, hd] (``rope_k``: RoPE k here, else it has it).  The
+    model axis is mesh dim ``dim``, the one that splits wq's output
+    (``None``: no axis does, every rank runs every head); ``k_split``: it
+    splits wk's too.  (Which mesh dim splits q itself is DTensor's choice:
+    with the residual stream's features split, its product comes out
+    partial there.)
+
+    A rank takes its query heads and the KV heads they read, of its batch
+    rows (the batch stays split where q, k and v split it alike), each
+    rank's gradient of them its own share: a projection split on the
+    model axis (or partial there) is reduced to its blocks and the blocks
+    that hold the rank's heads gathered over their run of ranks
+    (``_run_group``, ``_GroupGather``), so that the shares come back
+    reduce-scattered onto the blocks; one whole there, or a cache, is
+    gathered and read with a ``Partial`` gradient.  The rank RoPEs its
+    heads and, where the head dim is split, takes its lanes: the score
+    products are then summed over its lane group (its run of
+    ``ways // split``) and the output gathered over it
+    (``attention(lanes=)``).  The output is the rank's block of columns of
+    the merged [B, Sq, H * hd], which lies within its heads, placed as
+    ``Shard(2)`` on the model axis: ``wo``'s rows are split the same way,
+    so nothing is gathered for the product."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = q.device_mesh
-    want_q, want_kv, grad_kv = [], [], []
-    for pq, pk, pv in zip(q.placements, k.placements, v.placements):
-        same = pq == pk == pv
-        if pq == Shard(2):
-            wq, wkv = pq, pq if same else Replicate()
-        elif pq == Shard(0) and same:
-            wq = wkv = pq
-        else:
-            wq = wkv = Replicate()
-        want_q.append(wq)
-        want_kv.append(wkv)
-        # K/V gathered under split query heads: each rank's gradient of
-        # them is its own heads' share
-        grad_kv.append(Partial() if wq != wkv else wkv)
-    q = q if tuple(q.placements) == tuple(want_q) else \
-        q.redistribute(mesh, want_q)
-    k, v = (t if tuple(t.placements) == tuple(want_kv)
-            else t.redistribute(mesh, want_kv) for t in (k, v))
-    ql = q.to_local()
-    rows = ql.shape[0]
-    h0 = _head_offset(mesh, want_q, q.shape[2])
-    k0 = _head_offset(mesh, want_kv, k.shape[2])
-    kl, rep_l = _local_kv(k.to_local(grad_placements=grad_kv), k0, h0,
-                          ql.shape[2], rep)
-    vl, _ = _local_kv(v.to_local(grad_placements=grad_kv), k0, h0,
-                      ql.shape[2], rep)
+    k, v = (t if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in (k, v))
+    want = [pq if pq == Shard(0) and pq == pk == pv else Replicate()
+            for pq, pk, pv in zip(q.placements, k.placements, v.placements)]
+    if dim is not None and want[dim] != Replicate():
+        dim = None              # the rows are split there: every head
+    ways = mesh.size(dim) if dim is not None else 1
+    split, lanes = head_partition(ways, n_heads, n_kv, head_dim, k_split)
+    rest = ways // split
+    grad = [Partial() if i == dim and ways > 1 else w
+            for i, w in enumerate(want)]
+
+    keep = [mesh.size(i) == 1 for i in range(mesh.ndim)]
+    group, lane = divmod(mesh.get_local_rank(dim), rest) if ways > 1 \
+        else (0, 0)
+    hs = n_heads // split
+    kvs = n_kv // split if n_kv % split == 0 else 1
+    k0 = group * kvs if n_kv % split == 0 else group // (split // n_kv)
+
+    def local(t, n, h0, hn):
+        """Heads ``h0 .. h0 + hn - 1`` of the ``n`` of ``t`` on this rank,
+        [rows, S, hn, hd]."""
+        pl = [p if kp else w for p, w, kp in zip(t.placements, want, keep)]
+        gp = [p if kp else g for p, g, kp in zip(t.placements, grad, keep)]
+        run = hn * ways // n          # the ranks whose blocks hold them
+        blocks = ways > 1 and t.dim() == 3 and (
+            t.placements[dim].is_partial() or t.placements[dim] == Shard(2)
+        ) and (n * head_dim) % ways == 0 and (hn * ways) % n == 0 and (
+            h0 * ways) % n == 0
+        if blocks:              # a partial gradient here would have every
+            pl[dim] = Shard(2)  # rank run all of the projection's backward
+        if tuple(pl) != tuple(t.placements):
+            t = t.redistribute(mesh, pl)
+        if not blocks:
+            t = t.to_local(grad_placements=gp)
+            return t.reshape(*t.shape[:2], n, head_dim)[:, :, h0:h0 + hn]
+        t = t.to_local()
+        if run > 1:
+            t = _GroupGather.apply(t, _run_group(mesh, dim, run))
+        return t.reshape(*t.shape[:2], hn, head_dim)
+
+    ql = local(q, n_heads, group * hs, hs)
+    kl, vl = (local(t, n_kv, k0, kvs) for t in (k, v))
+    rows, sq = ql.shape[:2]
 
     def local_pos(p):
         p = p.full_tensor() if isinstance(p, DTensor) else p
-        return p[:rows]                 # every row holds the same positions
+        return p[:rows] if p.dim() == 2 else p   # every row holds the same
 
-    out = _attn_block(ql, kl, vl, local_pos(q_pos), local_pos(k_pos), rep_l,
-                      scale, window, causal, softmax_dtype)
-    return DTensor.from_local(out, mesh, want_q, run_check=False)
-
-
-def _head_offset(mesh, placements, heads: int) -> int:
-    """The first head of this rank's block of a dim of ``heads`` split
-    evenly (``Shard(2)``) over the mesh dims in order."""
-    from torch.distributed.tensor import Shard
-    first, size = 0, heads
-    for i, p in enumerate(placements):
-        if p == Shard(2):
-            size //= mesh.size(i)
-            first += mesh.get_local_rank(i) * size
-    return first
-
-
-def _local_kv(kl, k0: int, h0: int, n: int, rep: int):
-    """The KV heads that query heads ``h0 .. h0 + n - 1`` read (head h
-    reads KV head h // rep), from this rank's block ``kl`` [B, S, kv, D]
-    whose first head is ``k0``, and the group size they run at: a slice
-    where the query heads make whole groups or share one KV head, else
-    one KV head a query head."""
-    lo, hi = h0 // rep, (h0 + n - 1) // rep
-    assert 0 <= lo - k0 and hi - k0 < kl.shape[2], (h0, n, rep, k0)
-    if (h0 % rep == 0 and n % rep == 0) or lo == hi:
-        return kl[:, :, lo - k0:hi + 1 - k0], n // (hi + 1 - lo)
-    idx = (h0 + torch.arange(n, device=kl.device)) // rep - k0
-    return kl.index_select(2, idx), 1
+    q_pos, k_pos = local_pos(q_pos), local_pos(k_pos)
+    if rope_theta:
+        ql = rope(ql, q_pos, rope_theta)
+        if rope_k:
+            kl = rope(kl, k_pos, rope_theta)
+    lane_group = None
+    if lanes > 1:
+        c = head_dim // lanes
+        ql, kl, vl = (t[..., lane * c:(lane + 1) * c] for t in (ql, kl, vl))
+        lane_group = _run_group(mesh, dim, rest)
+    if _BLOCKS is not None:     # the block that runs, from its tensors
+        _BLOCKS.append((ql.shape[2], kl.shape[2], ql.shape[-1]))
+    out = attention(ql, kl, vl, q_pos, k_pos, lanes=lane_group, **kw)
+    width = n_heads * head_dim // ways
+    y = out.reshape(rows, sq, hs * head_dim)[..., lane * width:
+                                             (lane + 1) * width]
+    place = list(want)
+    if dim is not None:
+        place[dim] = Shard(2)
+    return DTensor.from_local(y, mesh, place, run_check=False)
 
 
 def split_heads(y, b: int, s: int, n: int, head_dim: int):
     """``y`` [B, S, n * head_dim] as [B, S, n, head_dim].  On a DTensor
     whose last dim is split over mesh dims that ``n`` does not divide,
     those mesh dims are gathered first: DTensor refuses to unflatten a dim
-    it cannot split evenly, where the reference's partitioner pads."""
+    it cannot split evenly (a decode step's new K/V, on their way into the
+    cache)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     if isinstance(y, DTensor):
         mesh, last = y.device_mesh, y.dim() - 1
@@ -272,32 +432,6 @@ def split_heads(y, b: int, s: int, n: int, head_dim: int):
             y = y.redistribute(mesh, [Replicate() if i in on_last else p
                                       for i, p in enumerate(y.placements)])
     return y.reshape(b, s, n, head_dim)
-
-
-class _MergeHeads(torch.autograd.Function):
-    """[B, S, n, hd] -> [B, S, n * hd] on a DTensor, whose backward splits
-    the gradient with ``split_heads`` (a plain view's backward would
-    unflatten a dim that the next product left unevenly sharded)."""
-
-    @staticmethod
-    def forward(x):
-        return x.reshape(*x.shape[:-2], -1)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.dims = tuple(inputs[0].shape)
-
-    @staticmethod
-    def backward(ctx, g):
-        return split_heads(g, *ctx.dims)
-
-
-def merge_heads(x):
-    """[B, S, n, hd] -> [B, S, n * hd] (``_MergeHeads`` on a DTensor)."""
-    from torch.distributed.tensor import DTensor
-    if isinstance(x, DTensor):
-        return _MergeHeads.apply(x)
-    return x.reshape(*x.shape[:-2], -1)
 
 
 def init_attn(gen, d_model, n_heads, n_kv, head_dim, dtype=torch.float32,
@@ -336,34 +470,63 @@ def attn_apply(p: Params, x, positions, *, n_heads, n_kv, head_dim, window=0,
     k/v go to slot ``pos % cache_len`` and attention runs against the whole
     cache using the absolute positions stored per slot.
     cross_kv: optional precomputed (k, v, k_pos) for encoder-decoder
-    cross-attention.
+    cross-attention, k and v [B, F, n_kv * head_dim].
+    On DTensors each rank runs its block of the heads
+    (``_sharded_attention``).
     """
+    from torch.distributed.tensor import DTensor
     b, s, _ = x.shape
-    q = split_heads(x @ p["wq"], b, s, n_heads, head_dim)
+    q = x @ p["wq"]
+    kw = dict(q_chunk=q_chunk, softmax_dtype=softmax_dtype)
+    sharded = isinstance(q, DTensor)
+    if sharded:
+        dim = _split_dim(p["wq"])
+        kw.update(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, dim=dim,
+                  k_split=dim is not None and _split_dim(p["wk"]) == dim)
     if cross_kv is not None:
         ck, cv, k_pos = cross_kv
-        out = attention(q, ck, cv, positions, k_pos, window=0, causal=False,
-                        q_chunk=q_chunk, softmax_dtype=softmax_dtype)
-        return merge_heads(out) @ p["wo"], None
+        if sharded:
+            out = _sharded_attention(q, ck, cv, positions, k_pos, window=0,
+                                     causal=False, **kw)
+            return out @ p["wo"], None
+        f = ck.shape[1]
+        out = attention(q.reshape(b, s, n_heads, head_dim),
+                        ck.reshape(b, f, n_kv, head_dim),
+                        cv.reshape(b, f, n_kv, head_dim), positions, k_pos,
+                        window=0, causal=False, **kw)
+        return out.reshape(b, s, -1) @ p["wo"], None
 
-    k = split_heads(x @ p["wk"], b, s, n_kv, head_dim)
-    v = split_heads(x @ p["wv"], b, s, n_kv, head_dim)
-    if rope_theta:
-        q = rope(q, positions, rope_theta)
-        k = rope(k, positions, rope_theta)
+    k, v = x @ p["wk"], x @ p["wv"]
     if cache is not None:
+        k = split_heads(k, b, s, n_kv, head_dim)
+        v = split_heads(v, b, s, n_kv, head_dim)
+        if rope_theta:
+            k = rope(k, positions, rope_theta)
         slot = pos % cache["k"].shape[1]
         cache["k"][:, slot:slot + s] = k.to(cache["k"].dtype)
         cache["v"][:, slot:slot + s] = v.to(cache["v"].dtype)
         cache["pos"][slot] = pos
-        out = attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                        positions, cache["pos"], window=window,
-                        q_chunk=q_chunk, softmax_dtype=softmax_dtype)
-        return merge_heads(out) @ p["wo"], cache
-    out = attention(q, k, v, positions, positions, window=window,
-                    causal=causal, q_chunk=q_chunk,
-                    softmax_dtype=softmax_dtype)
-    return merge_heads(out) @ p["wo"], None
+        k, v, k_pos = (cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                       cache["pos"])
+    else:
+        k_pos = positions
+    if sharded:
+        out = _sharded_attention(q, k, v, positions, k_pos, window=window,
+                                 causal=cache is not None or causal,
+                                 rope_theta=rope_theta,
+                                 rope_k=cache is None, **kw)
+        return out @ p["wo"], cache
+    q = q.reshape(b, s, n_heads, head_dim)
+    if cache is None:
+        k = k.reshape(b, s, n_kv, head_dim)
+        v = v.reshape(b, s, n_kv, head_dim)
+        if rope_theta:
+            k = rope(k, positions, rope_theta)
+    if rope_theta:
+        q = rope(q, positions, rope_theta)
+    out = attention(q, k, v, positions, k_pos, window=window,
+                    causal=cache is not None or causal, **kw)
+    return out.reshape(b, s, -1) @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------

@@ -286,14 +286,12 @@ class Model:
     # -- shared stacks --------------------------------------------------------
 
     def _cross_kv(self, p_l: Params, enc_out):
-        """One decoder layer's cross K/V over the encoder output [B, F, d]."""
-        cfg = self.cfg
-        b, f, _ = enc_out.shape
-        ck = L.split_heads(enc_out @ p_l["xattn/wk"].to(cfg.cdtype), b, f,
-                           cfg.n_kv, cfg.hd)
-        cv = L.split_heads(enc_out @ p_l["xattn/wv"].to(cfg.cdtype), b, f,
-                           cfg.n_kv, cfg.hd)
-        return ck, cv, torch.arange(f, device=enc_out.device)
+        """One decoder layer's cross K/V over the encoder output [B, F, d],
+        each [B, F, KV * hd] (``attn_apply`` splits the heads)."""
+        cd = self.cfg.cdtype
+        return (enc_out @ p_l["xattn/wk"].to(cd),
+                enc_out @ p_l["xattn/wv"].to(cd),
+                torch.arange(enc_out.shape[1], device=enc_out.device))
 
     def _layers(self, fn, x, positions, p: Params, *extra, cache=None):
         """``fn(x, positions, p, *extra) -> (x, aux)``, rematerialised
