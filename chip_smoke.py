@@ -847,7 +847,9 @@ def profiled(fn):
     op), the count of device ops, and the top 10 device kernels as
     [name, µs, launches]."""
     import torch
-    with torch.profiler.profile(
+    from repro_torch.obs import spans
+    # no_phases: the step as it runs untraced, without the phases' markers
+    with spans.no_phases(), torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -2892,14 +2894,16 @@ def mesh_train_phase(dev):
             torch.cuda.empty_cache()
             logs, evs, secs = _train_events(
                 argv, os.path.join(out_dir, f"{name}.jsonl"))
-            steady = sum(e["dur_s"] for e in evs if e["ev"] == "span"
-                         and e["name"] == "train/steady_steps")
+            # the steady steps' wall time, device drained, saves and
+            # rollbacks left out (launch/train.py)
+            steady = next(e for e in evs if e["ev"] == "span"
+                          and e["name"] == "train/steady_steps")
             runs[name] = {"losses": [r["loss"] for r in logs],
                           "launches": evs[-1]["kernel_launches"][
                               "bucket_acc"],
                           "peak_bytes": evs[-1]["device_peak_bytes"],
-                          "ms_per_step": 1e3 * steady
-                          / (MESH_TRAIN_STEPS - 1),
+                          "ms_per_step": 1e3 * steady["dur_s"]
+                          / steady["steps"],
                           "layout": evs[0]["config"]["layout"],
                           "seconds": secs}
     finally:
@@ -2919,7 +2923,8 @@ def mesh_train_phase(dev):
         f"ranks, W = {d}), {MESH_TRAIN_STEPS} steps of batch "
         f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}: losses {losses}, --ranks {d} "
         f"{ranks['losses']} (largest rtol {worst:.3g}); bucket_acc "
-        f"{mesh['launches']} launches; ms per steady step "
+        f"{mesh['launches']} launches; ms per steady step (wall clock, "
+        f"device drained) "
         f"{mesh['ms_per_step']:.1f} (--ranks {d}: "
         f"{ranks['ms_per_step']:.1f}); largest peak on a rank "
         f"{mesh['peak_bytes']} bytes (--ranks {d}: {ranks['peak_bytes']}); "

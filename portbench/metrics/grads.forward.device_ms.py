@@ -1,0 +1,8 @@
+"""grads.forward.device_ms: device milliseconds a step of the gradients'
+forward pass, the operations inside the program's phase ``grads`` whose
+pass (``obs/spans.py``) reads forward (moves the cell's throughput)."""
+from portbench import phases
+
+
+def read(trace):
+    return phases.device_ms(trace, "grads", pass_="forward")

@@ -53,6 +53,16 @@ an all-reduce), and 0-d float32 tensors on the device for
 waits for the device.  With telemetry off the step's metrics have no
 ``"obs"`` key, and its numbers are the same.
 
+Phases (``obs/spans.py::phase``, only while a profiler runs): ``step``
+around a step, with ``grads`` (the per-worker gradients) and ``optim``
+(the optimizer, ``optim/apply`` its ``p - u``) under it; on the bucketed
+wire ``wire/bucketize``, ``wire/noise``, ``wire/memory`` (casts, masks, the
+memories and the error feedback), ``wire/encode`` (the uplink's encode,
+mask, faults and checksum), ``wire/ring`` (its record carries
+``wire_bytes``, the count telemetry reports, on every step), ``wire/decode``
+(the worker's own payload), ``wire/downlink`` and ``wire/unbucketize``;
+the leaf wire is one phase, ``wire``.
+
 Replicated quantities (``hbar``, the aggregate, the parameters) exist once
 here.  In the reference every worker holds its own copy, updated with its
 own ring sum; the copies differ only in the rounding of the sum's order,
@@ -86,6 +96,7 @@ from repro_torch.core import codec as wire
 from repro_torch.core import faults as FLT
 from repro_torch.core.noise import MeshDraws, MeshNoise, MeshNoiseSource
 from repro_torch.kernels.bucket_ring import bucket_acc_hop_, bucket_ring_sum
+from repro_torch.obs import spans
 
 VARIANTS = ("sgd", "qsgd", "diana", "biqsgd", "artemis", "dore")
 
@@ -656,72 +667,81 @@ def bucketed_aggregate(cfg: DistConfig, state: ArtemisDistState,
     n, lead, dev = axis.n, gbuckets.shape[0], gbuckets.device
     fc = FLT.of(cfg.faults)
     wc = cfg.wire_codec(layout.row)
-    active, part = _masks(cfg, state, draws, lead, dev)
     alpha = cfg.alpha if cfg.alpha is not None else (
         _codec_alpha(cfg, [layout.row]) if cfg.memory else 0.0)
     p = cfg.p_participation
     mdt = getattr(torch, cfg.memory_dtype)
 
-    g32 = gbuckets.to(torch.float32)
-    hit = scrubbed = None
-    if fc.blowup_rate > 0.0:
-        hit = FLT.blowup_mask(fc, draws.u_blow)
-        g32 = FLT.apply_blowup(fc, hit, g32)
-    if fc.scrub:
-        # a non-finite gradient masks its worker before any arithmetic,
-        # and is zeroed (0 * NaN is NaN)
-        active = active * _all_finite(g32)
-        g32 = FLT.nan_to_zero(g32)
-    act = _bcast(active, g32)
-    h = state.h.to(torch.float32) if cfg.memory else torch.zeros_like(g32)
-    delta = (g32 - h) * act
-    if cfg.use_ef:
-        delta = delta + state.e
+    with spans.phase("wire/memory"):
+        active, part = _masks(cfg, state, draws, lead, dev)
+        g32 = gbuckets.to(torch.float32)
+        hit = scrubbed = None
+        if fc.blowup_rate > 0.0:
+            hit = FLT.blowup_mask(fc, draws.u_blow)
+            g32 = FLT.apply_blowup(fc, hit, g32)
+        if fc.scrub:
+            # a non-finite gradient masks its worker before any arithmetic,
+            # and is zeroed (0 * NaN is NaN)
+            active = active * _all_finite(g32)
+            g32 = FLT.nan_to_zero(g32)
+        act = _bcast(active, g32)
+        h = (state.h.to(torch.float32) if cfg.memory
+             else torch.zeros_like(g32))
+        delta = (g32 - h) * act
+        if cfg.use_ef:
+            delta = delta + state.e
 
     ok = act
     if cfg.up_compress:
-        enc = bucketing.encode_buckets(wc, delta, draws.u_up)
-        # PP2: an inactive worker's payload (its EF buffer under Dore) must
-        # add exactly zero to the sum
-        enc = FLT.mask_payload(enc, active)
-        if fc.bitflip_rate > 0.0:
-            # only a payload that was sent picks up flipped bits
-            enc = FLT.corrupt_payload(draws.flips[0], enc, fc.bitflip_rate,
-                                      only=active)
-        if fc.scrub:
-            # a checksum per bucket: a corrupt bucket is dropped through
-            # the zero-scale path, its h and e slices stay put
-            valid = message_valid(wc, enc, 2)                # [L, B]
-            ok = act * _bcast(valid, g32)
-            enc = FLT.scrub_payload(enc, valid)
-            scrubbed = valid.numel() - valid.sum()
-        dhat_sum = axis.ring(wc, enc)
-        dhat_i = bucketing.decode_buckets(wc, enc)
-        per_worker = (4.0 * layout.padded_total
-                      if cfg.reduce_impl == "psum"
-                      else (n - 1) * payload_nbytes(enc))
+        with spans.phase("wire/encode"):
+            enc = bucketing.encode_buckets(wc, delta, draws.u_up)
+            # PP2: an inactive worker's payload (its EF buffer under Dore)
+            # must add exactly zero to the sum
+            enc = FLT.mask_payload(enc, active)
+            if fc.bitflip_rate > 0.0:
+                # only a payload that was sent picks up flipped bits
+                enc = FLT.corrupt_payload(draws.flips[0], enc,
+                                          fc.bitflip_rate, only=active)
+            if fc.scrub:
+                # a checksum per bucket: a corrupt bucket is dropped
+                # through the zero-scale path, its h and e slices stay put
+                valid = message_valid(wc, enc, 2)            # [L, B]
+                ok = act * _bcast(valid, g32)
+                enc = FLT.scrub_payload(enc, valid)
+                scrubbed = valid.numel() - valid.sum()
+        wire_bytes = lead * (4.0 * layout.padded_total
+                             if cfg.reduce_impl == "psum"
+                             else (n - 1) * payload_nbytes(enc))
+        with spans.phase("wire/ring", wire_bytes=wire_bytes):
+            dhat_sum = axis.ring(wc, enc)
+        with spans.phase("wire/decode"):
+            dhat_i = bucketing.decode_buckets(wc, enc)
     else:
-        dhat_i = delta * act
-        dhat_sum = axis.dense(dhat_i)
-        per_worker = 4.0 * layout.padded_total
+        with spans.phase("wire/memory"):
+            dhat_i = delta * act
+        wire_bytes = lead * 4.0 * layout.padded_total
+        with spans.phase("wire/ring", wire_bytes=wire_bytes):
+            dhat_sum = axis.dense(dhat_i)
 
-    e_new = (ok * (delta - dhat_i) + (1 - ok) * state.e
-             if cfg.use_ef else state.e)
-    if cfg.memory:
-        hbar = state.hbar.to(torch.float32)
-        ghat = hbar + dhat_sum / (p * n)
-        h_new = (h + alpha * dhat_i).to(mdt)
-        hbar_new = (hbar + alpha * dhat_sum / n).to(mdt)
-    else:
-        ghat = dhat_sum / (p * n)
-        h_new, hbar_new = state.h, state.hbar
+    with spans.phase("wire/memory"):
+        e_new = (ok * (delta - dhat_i) + (1 - ok) * state.e
+                 if cfg.use_ef else state.e)
+        if cfg.memory:
+            hbar = state.hbar.to(torch.float32)
+            ghat = hbar + dhat_sum / (p * n)
+            h_new = (h + alpha * dhat_i).to(mdt)
+            hbar_new = (hbar + alpha * dhat_sum / n).to(mdt)
+        else:
+            ghat = dhat_sum / (p * n)
+            h_new, hbar_new = state.h, state.hbar
     if cfg.dwn_compress:
         # the zero-byte broadcast: one key, one compression for all
-        ghat = bucketing.decode_buckets(
-            wc, bucketing.encode_buckets(wc, ghat, draws.u_dwn))
+        with spans.phase("wire/downlink"):
+            ghat = bucketing.decode_buckets(
+                wc, bucketing.encode_buckets(wc, ghat, draws.u_dwn))
     new = ArtemisDistState(h_new, hbar_new, e_new, state.acc, part,
                            state.step + 1)
-    obs = (_obs(lead * per_worker, active, scrubbed, hit, dev)
+    obs = (_obs(wire_bytes, active, scrubbed, hit, dev)
            if cfg.telemetry else None)
     return ghat, new, obs
 
@@ -732,6 +752,12 @@ def leaf_aggregate(cfg: DistConfig, state: ArtemisDistState,
     per-leaf gradient stacks ``[L, *leaf shape]`` in flatten order ->
     (the descent direction per leaf, the new state, the obs totals or
     None)."""
+    with spans.phase("wire"):
+        return _leaf_aggregate(cfg, state, grads, axis, draws)
+
+
+def _leaf_aggregate(cfg: DistConfig, state: ArtemisDistState,
+                    grads: Sequence[torch.Tensor], axis, draws: MeshDraws):
     n, lead = axis.n, grads[0].shape[0]
     dev = grads[0].device
     fc = FLT.of(cfg.faults)
@@ -870,11 +896,13 @@ def _worker_grads(grad_fn, dcfg: DistConfig, params: Params,
     """Each worker's gradient: a ``[W, B, R, C]`` bucket stack (bucketed
     wire) or the per-leaf ``[W, *shape]`` stacks (leaf wire), with the
     workers' mean loss and metrics (the reference's pmean)."""
-    grads, (loss, metrics) = grad_fn(params, _split(batch, n_workers))
+    with spans.phase("grads"):
+        grads, (loss, metrics) = grad_fn(params, _split(batch, n_workers))
     leaves = [grads[k] for k in params]
     if dcfg.bucketed:
-        leaves = bucketing.bucketize(dcfg.layout(list(params.values())),
-                                     leaves)
+        with spans.phase("wire/bucketize"):
+            leaves = bucketing.bucketize(
+                dcfg.layout(list(params.values())), leaves)
     return leaves, (loss.mean(), {k: v.mean() for k, v in metrics.items()})
 
 
@@ -952,10 +980,13 @@ def make_train_step(model, optimizer, dcfg: Optional[DistConfig],
                           step=0)
 
     def _apply(state, agg, art, loss, metrics):
-        updates, opt_state = optimizer.update(agg, state.opt_state,
-                                              state.step)
-        params = {k: p - u.to(p.dtype)
-                  for (k, p), u in zip(state.params.items(), updates)}
+        with spans.phase("optim"):
+            updates, opt_state = optimizer.update(agg, state.opt_state,
+                                                  state.step)
+            with spans.phase("optim/apply"):
+                params = {k: p - u.to(p.dtype)
+                          for (k, p), u in zip(state.params.items(),
+                                               updates)}
         return TrainState(params, opt_state, art, state.step + 1), (loss,
                                                                     metrics)
 
@@ -963,11 +994,14 @@ def make_train_step(model, optimizer, dcfg: Optional[DistConfig],
         value_grad = torch.func.grad_and_value(model.loss, has_aux=True)
 
         def plain_step(state: TrainState, batch):
-            grads, (loss, metrics) = value_grad(state.params, batch)
-            return _apply(state, list(grads.values()),
-                          dataclasses.replace(state.artemis,
-                                              step=state.artemis.step + 1),
-                          loss, metrics)
+            with spans.phase("step", step=state.step):
+                with spans.phase("grads"):
+                    grads, (loss, metrics) = value_grad(state.params, batch)
+                return _apply(state, list(grads.values()),
+                              dataclasses.replace(
+                                  state.artemis,
+                                  step=state.artemis.step + 1),
+                              loss, metrics)
 
         return init_state, plain_step
 
@@ -975,6 +1009,10 @@ def make_train_step(model, optimizer, dcfg: Optional[DistConfig],
     shapes = leaves = None
 
     def step_fn(state: TrainState, batch):
+        with spans.phase("step", step=state.step):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch):
         nonlocal source, shapes, leaves
         plist = list(state.params.values())
         if shapes is None:
@@ -988,13 +1026,15 @@ def make_train_step(model, optimizer, dcfg: Optional[DistConfig],
         art = state.artemis
         if dcfg.local_steps > 1:
             g, art = _fold_local(dcfg, art, g)
-        draws = _draws(source, dcfg, art.step, leaves)
+        with spans.phase("wire/noise"):
+            draws = _draws(source, dcfg, art.step, leaves)
         axis = SimulatedAxis(n_workers, dcfg.reduce_impl)
         if dcfg.bucketed:
             layout = dcfg.layout(plist)
             ghat, art, obs = bucketed_aggregate(dcfg, art, g, layout, axis,
                                                 draws)
-            agg = bucketing.unbucketize(layout, ghat, like=plist)
+            with spans.phase("wire/unbucketize"):
+                agg = bucketing.unbucketize(layout, ghat, like=plist)
         else:
             agg, art, obs = leaf_aggregate(dcfg, art, g, axis, draws)
         if obs is not None:

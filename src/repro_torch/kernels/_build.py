@@ -54,6 +54,7 @@ SIGNATURES = {
         "squant_encode": (_P, _I, _P, _I, _I, _LL, _LL, _I, _I, _P, _P, _P),
         "squant_decode": (_P, _P, _LL, _LL, _I, _I, _P, _I, _P),
         "dequant_apply": (_P, _I, _P, _P, _F, _LL, _LL, _I, _I, _P, _P)},
+    "phase_mark": {"phase_mark": (_P,)},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

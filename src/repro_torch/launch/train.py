@@ -304,6 +304,20 @@ def _train(args, given, rank: int = 0, world: int = 0):
         obs_spans.reset()
         t0 = time.perf_counter()
         first_s = None      # the first communicating step builds kernels
+        # the steady steps: from the first step's end to the device drained
+        # after the loop, less the in-loop saves and the rollbacks' rebuilds
+        # (each timed from the device drained); host batches and the logged
+        # steps' loss reads stay in
+        steady_t0, paused, steady_steps = None, 0.0, 0
+
+        def drained():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return time.perf_counter()
+
+        def since(t):       # a pause of the steady clock, once it runs
+            return 0.0 if steady_t0 is None else time.perf_counter() - t
+
         # host-side divergence sentinel: last good state + geometric lr
         # backoff
         good_state, lr_scale, rollbacks = state, 1.0, 0
@@ -312,16 +326,17 @@ def _train(args, given, rank: int = 0, world: int = 0):
         while i < start + args.steps:
             batch = batches.batch_at(i)
             local = local_fn is not None and (i + 1) % args.local_steps
+            steady_steps += steady_t0 is not None
             if local:
                 state, (loss, metrics) = local_fn(state, batch)
             elif first_s is None:
                 with obs_spans.span("train/compile+first_step"):
                     state, (loss, metrics) = step_fn(state, batch)
                     float(loss)                 # waits for the device
-                first_s = time.perf_counter() - t0
+                steady_t0 = time.perf_counter()
+                first_s = steady_t0 - t0
             else:
-                with obs_spans.span("train/step"):
-                    state, (loss, metrics) = step_fn(state, batch)
+                state, (loss, metrics) = step_fn(state, batch)
             if i % args.log_every == 0 or i == start + args.steps - 1:
                 if local and world:
                     # a rank's local step returns its own loss (dcfg is
@@ -337,8 +352,10 @@ def _train(args, given, rank: int = 0, world: int = 0):
                         raise RuntimeError(
                             f"loss diverged {rollbacks} times; giving up")
                     lr_scale *= args.backoff
+                    t = drained()
                     state = good_state
                     _, step_fn = make_step(lr_scale)
+                    paused += since(t)
                     log.emit("rollback", step=state.step, count=rollbacks,
                              lr_scale=lr_scale)
                     i = state.step
@@ -354,16 +371,19 @@ def _train(args, given, rank: int = 0, world: int = 0):
                 good_state = state
             if (args.ckpt_every and ckpt_dir
                     and state.step % args.ckpt_every == 0):
+                t = drained()
                 checkpointer.save(ckpt_dir, state.step, state, write=writes)
+                paused += since(t)
             i += 1
+        steady = 0.0 if steady_t0 is None else drained() - steady_t0 - paused
         if ckpt_dir:
             checkpointer.save(ckpt_dir, state.step, state, write=writes)
         wall = time.perf_counter() - t0
-        steady = obs_spans.total("train/step")
         if first_s is not None:
             log.emit("span", name="train/compile+first_step", dur_s=first_s)
         if steady > 0:
-            log.emit("span", name="train/steady_steps", dur_s=steady)
+            log.emit("span", name="train/steady_steps", dur_s=steady,
+                     steps=steady_steps)
         # the run's kernel launches (over ranks: summed over them)
         launched = [k.launches - n for k, n in zip(KERNELS, launched)]
         if world:

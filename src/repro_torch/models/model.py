@@ -22,6 +22,11 @@ through ``models/remat.py`` under ``cfg.remat_policy``.  The enc-dec
 family's cross K/V are computed outside the wrapped layer and passed in,
 as the reference passes them precomputed.  Prefill and decode (a cache,
 or no gradient wanted) run the layers as they are.
+
+While a profiler runs, attention (self and cross, with its input norm),
+the MLP (with its norm) and the head (the final norm and the chunked
+cross-entropy) are the phases ``grads/attention``, ``grads/mlp`` and
+``grads/head`` (``obs/spans.py``), their backward included.
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from repro_torch.models import remat as RM
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import spans
 
 Params = Dict[str, torch.Tensor]
 
@@ -140,21 +146,26 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
             window = cfg.local_window
         elif cfg.attn_kind == "sliding":
             window = cfg.window
-        y, _ = L.attn_apply(
-            _cast(sub(p, "attn"), cd), norm(p["ln1"], x), positions,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
-            window=window, causal=causal, rope_theta=cfg.rope_theta,
-            q_chunk=cfg.q_chunk, softmax_dtype=getattr(torch,
-                                                       cfg.softmax_dtype),
-            cache=cache, pos=pos)
+        with spans.phase("grads/attention") as ph:
+            y, _ = L.attn_apply(
+                _cast(sub(p, "attn"), cd), norm(p["ln1"], x), positions,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
+                window=window, causal=causal, rope_theta=cfg.rope_theta,
+                q_chunk=cfg.q_chunk,
+                softmax_dtype=getattr(torch, cfg.softmax_dtype),
+                cache=cache, pos=pos)
+            ph.backward(x, y)
         x = x + y
         xattn = sub(p, "xattn")
         if xattn:
-            y, _ = L.attn_apply(_cast(xattn, cd), norm(p["lnx"], x),
-                                positions, n_heads=cfg.n_heads,
-                                n_kv=cfg.n_kv, head_dim=cfg.hd, causal=False,
-                                rope_theta=cfg.rope_theta,
-                                q_chunk=cfg.q_chunk, cross_kv=cross_kv)
+            with spans.phase("grads/attention") as ph:
+                y, _ = L.attn_apply(_cast(xattn, cd), norm(p["lnx"], x),
+                                    positions, n_heads=cfg.n_heads,
+                                    n_kv=cfg.n_kv, head_dim=cfg.hd,
+                                    causal=False,
+                                    rope_theta=cfg.rope_theta,
+                                    q_chunk=cfg.q_chunk, cross_kv=cross_kv)
+                ph.backward(x, y)
             x = x + y
 
     moe = sub(p, "moe")
@@ -168,8 +179,11 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
     else:
         mlp = sub(p, "mlp")
         if mlp:
-            x = x + L.mlp_apply(_cast(mlp, cd), norm(p["ln2"], x),
+            with spans.phase("grads/mlp") as ph:
+                y = L.mlp_apply(_cast(mlp, cd), norm(p["ln2"], x),
                                 cfg.activation)
+                ph.backward(x, y)
+            x = x + y
     return x, aux
 
 
@@ -367,8 +381,9 @@ class Model:
 
     # -- forward (train / prefill) -------------------------------------------
 
-    def _forward(self, params: Params, batch):
-        """Returns (hidden states [B, S_total, d], aux, text_offset)."""
+    def _forward(self, params: Params, batch, final_norm: bool = True):
+        """Returns (hidden states [B, S_total, d], aux, text_offset); the
+        final norm left to the caller unless ``final_norm``."""
         cfg = self.cfg
         tok = batch["tokens"]
         # gather the f32 rows, then convert (the same values as converting
@@ -390,20 +405,24 @@ class Model:
                                        enc_out=enc_out)
         else:
             x, aux = self._run_pattern(params, x, positions)
-        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if final_norm:
+            x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return x, aux, offset
 
     def loss(self, params: Params, batch):
         """Next-token cross-entropy (+ MoE aux). labels: tokens shifted."""
         cfg = self.cfg
-        x, aux, off = self._forward(params, batch)
+        x, aux, off = self._forward(params, batch, final_norm=False)
         tok = batch["tokens"]
-        h = x[:, off:, :]                       # text region
         labels = torch.cat([tok[:, 1:], torch.full(
             (tok.shape[0], 1), -1, dtype=tok.dtype, device=tok.device)],
             dim=1)
-        nll = L.chunked_xent(h, params["unembed"].to(cfg.cdtype), labels,
-                             chunk=cfg.xent_chunk)
+        with spans.phase("grads/head") as ph:
+            h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+            nll = L.chunked_xent(h[:, off:, :],     # text region
+                                 params["unembed"].to(cfg.cdtype), labels,
+                                 chunk=cfg.xent_chunk)
+            ph.backward(x, nll)
         return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
     def prefill_logits(self, params: Params, batch):

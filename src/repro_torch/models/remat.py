@@ -13,7 +13,9 @@ keeps nothing of it but the body's inputs (the residual stream and the
 layer's parameters); its backward runs the body again under
 ``torch.func.vjp`` and pulls the output gradients through.  The recompute
 repeats the same eager ops on the same inputs, so loss and gradients are
-those of the body run once, bit for bit.
+those of the body run once, bit for bit.  It is the phase
+``grads/recompute`` (``obs/spans.py``), so that a traced step tells the
+recompute's device time from the backward's.
 
 Policies (``POLICIES``): ``None`` and ``"nothing_saveable"`` save nothing
 (full remat); ``"everything_saveable"`` saves everything, which is no remat
@@ -33,6 +35,8 @@ from typing import Callable, FrozenSet, List, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.obs import spans
 
 _aten = torch.ops.aten
 _NO_BATCH = frozenset({_aten.mm.default, _aten.addmm.default})
@@ -148,7 +152,7 @@ def _recompute(body: Callable, primals, grads, replay) -> List[torch.Tensor]:
     gradient, whose redistributions are autograd Functions that
     ``torch.func`` refuses)."""
     if torch._C._are_functorch_transforms_active():
-        with replay:
+        with spans.phase("grads/recompute"), replay:
             _, pull = torch.func.vjp(body, *primals)
         # torch.func.grad runs the backward with create_graph=True: the
         # graph of the pull would keep this layer's recompute alive until
@@ -157,7 +161,7 @@ def _recompute(body: Callable, primals, grads, replay) -> List[torch.Tensor]:
         return [g.detach() for g in pull(grads)]
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_() for p in primals]
-        with replay:
+        with spans.phase("grads/recompute"), replay:
             outs = body(*leaves)
         outs = outs if isinstance(outs, tuple) else (outs,)
         pairs = [(o, g) for o, g in zip(outs, grads)

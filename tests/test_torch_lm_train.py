@@ -34,6 +34,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
@@ -301,6 +302,29 @@ def test_train_cli_events_and_log_file(tmp_path):
     assert json.loads(log_file.read_text()) == logs
     # the run's kernel launches: none on the CPU (the plain versions)
     assert evs[-1]["kernel_launches"] == {k.__name__: 0 for k in KERNELS}
+
+
+def test_train_cli_steady_span_leaves_the_saves_out(tmp_path, monkeypatch):
+    """``train/steady_steps`` counts the steps after the first and leaves
+    the in-loop checkpoint saves out of its time: each save here moves
+    the clock on by 1000 s."""
+    save, clock, skew = checkpointer.save, time.perf_counter, [0.0]
+
+    def slow_save(*a, **kw):
+        skew[0] += 1000.0
+        return save(*a, **kw)
+    monkeypatch.setattr(checkpointer, "save", slow_save)
+    monkeypatch.setattr(time, "perf_counter", lambda: clock() + skew[0])
+    events = tmp_path / "ev.jsonl"
+    _train("--dist", "artemis", "--workers", "2", "--ckpt-dir",
+           str(tmp_path / "c"), "--ckpt-every", "1", "--events", str(events),
+           steps=4)
+    evs = tevents.read_events(str(events))
+    steady = next(e for e in evs if e["ev"] == "span"
+                  and e["name"] == "train/steady_steps")
+    assert skew[0] == 5000.0            # four in the loop, one after it
+    assert steady["steps"] == 3
+    assert 0 < steady["dur_s"] < 1000.0
 
 
 def test_train_cli_resume_is_bit_for_bit(tmp_path):

@@ -234,6 +234,79 @@ def test_profile_writes_a_chrome_trace(tmp_path):
     assert tspans.perfetto_artifacts(str(tmp_path / "missing")) == []
 
 
+def test_a_phase_without_a_profiler_records_and_launches_nothing(
+        monkeypatch):
+    from repro_torch.kernels import _build
+    launched = []
+    monkeypatch.setattr(tspans, "_mark", lambda: launched.append(1))
+    tspans.reset()
+    x = torch.ones(3, requires_grad=True)
+    with tspans.phase("step", step=0, wire_bytes=1.0) as ph:
+        y = x * 2.0
+        ph.backward(x, y)
+    y.sum().backward()
+    assert tspans.phases() == [] and launched == []
+    assert not x._backward_hooks and not y._backward_hooks
+    assert "phase_mark" not in _build._LOADED
+    # under a profiler: a record and a marker at each end, the block's
+    # backward among them
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tspans.phase("step", step=3, wire_bytes=1.0):
+            with tspans.phase("inner") as ph:
+                y = x * 2.0
+                ph.backward(x, y)
+            y.sum().backward()
+    outer, inner, bwd = tspans.phases()
+    assert len(launched) == 6
+    assert (outer.step, outer.counts, inner.step, inner.parent) == (
+        3, {"wire_bytes": 1.0}, 3, "step")
+    assert outer.seq < inner.seq < inner.end_seq < bwd.seq < bwd.end_seq \
+        < outer.end_seq
+    assert outer.pass_ == inner.end_pass == "forward"
+    assert (bwd.name, bwd.pass_, bwd.parent) == ("inner", "backward", "step")
+
+
+def test_no_phases_keeps_a_capture_free_of_phases(monkeypatch):
+    launched = []
+    monkeypatch.setattr(tspans, "_mark", lambda: launched.append(1))
+    tspans.reset()
+    x = torch.ones(3, requires_grad=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tspans.no_phases():
+            with tspans.phase("step", step=0) as ph:
+                y = x * 2.0
+                ph.backward(x, y)
+            y.sum().backward()
+        assert tspans._QUIET == [0]
+        with tspans.phase("step", step=1):
+            pass
+    assert [r.step for r in tspans.phases()] == [1] and len(launched) == 2
+    assert not y._backward_hooks
+
+
+@pytest.mark.parametrize("reduce_impl", ["pipelined", "psum"])
+def test_the_rings_wire_bytes_are_telemetrys(reduce_impl):
+    from repro_torch.core import dist
+    from repro_torch.models.toy import ToyMLP
+    model = ToyMLP(4, 64)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = model.batch(torch.Generator().manual_seed(1), 32)
+    dcfg = dist.DistConfig(seed=3, bucket_bytes=4096, max_buckets=8,
+                           bucket_row=64, reduce_impl=reduce_impl,
+                           telemetry=True)
+    init, step = dist.make_train_step(model, topt.adam(1e-3), dcfg, 4,
+                                      torch.device("cpu"))
+    tspans.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        _, (_, metrics) = step(init(params), batch)
+    ring = [r for r in tspans.phases() if r.name == "wire/ring"]
+    assert len(ring) == 1
+    assert ring[0].counts["wire_bytes"] == metrics["obs"]["wire_bytes"] > 0
+
+
 @pytest.mark.parametrize("direction,values,verdict", [
     ("lower", [10.0, 11.0, 13.0], "regression"),
     ("lower", [10.0, 11.0, 12.0], "ok"),
