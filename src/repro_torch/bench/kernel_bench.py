@@ -6,7 +6,10 @@ On the card each row is one kernel of ``PERF.md``'s table: B1
 strided view, ``worker_sum``, B3 ``bucket_acc`` (out of place, and the
 ring's in-place hops 0 and 1), B4 ``bucket_ring_sum``, B5
 ``squant_encode``, B6 ``squant_decode`` (whole (256, 256) tiles and (256,
-8) blocks, which take one element a thread) and B7 ``dequant_apply``.  The
+8) blocks, which take one element a thread) and B7 ``dequant_apply``; and,
+in the ``kernel/attention_*`` rows, the fused attention's forward and
+backward at the cells' shapes against their FLOP bound (989 TFLOP/s bf16), the eager route
+they replace and torch's SDPA as a yardstick the port never calls.  The
 row's value is the kernel's device µs per launch read from the
 ``torch.profiler`` CUDA trace (never host-inclusive); ``derived`` holds the
 bound (the bytes the function must move, each input read once and each
@@ -385,7 +388,7 @@ def kernel_suite(ctx: Context) -> List[Row]:
              ("b7_dequant_apply", b7_case(dev, sh["ops"], 9, n=n))]
     rows = _rows(cases, ctx)
     rows += traffic_rows(ctx, sh["ops"])
-    return rows
+    return rows + attention_rows(ctx)
 
 
 def traffic_rows(ctx: Context, shape) -> List[Row]:
@@ -428,6 +431,168 @@ def b1_probe(ctx: Context) -> List[Row]:
     dev, shape = ctx.device, _shapes(ctx)["probe"]
     return _rows([("b1_probe", b1_case(dev, shape, 11, block=TILE)),
                   ("b5_probe", b5_case(dev, shape, 12))], ctx)
+
+
+# the fused attention at the cells' shapes: name -> (b, sq, sk, heads, kv
+# heads, head dim, causal); the CPU's toy shapes keep the ragged edges
+ATTENTION = {
+    "whisper_encoder": (40, 1500, 1500, 6, 6, 64, False),
+    "whisper_decoder": (40, 448, 448, 6, 6, 64, True),
+    "whisper_cross": (40, 448, 1500, 6, 6, 64, False),
+    "starcoder2_causal_gqa": (4, 4096, 4096, 36, 4, 128, True)}
+ATTENTION_TOY = {
+    "whisper_encoder": (2, 150, 150, 2, 2, 64, False),
+    "whisper_decoder": (2, 45, 45, 2, 2, 64, True),
+    "whisper_cross": (2, 45, 150, 2, 2, 64, False),
+    "starcoder2_causal_gqa": (1, 130, 130, 4, 2, 128, True)}
+PEAK_BF16 = 989e12         # the H100 SXM's dense bf16 tensor cores
+
+
+def _attention_operands(dev, shape, seed: int):
+    """(the kernel's arguments, dO, forward FLOPs over the unmasked
+    pairs)."""
+    b, sq, sk, h, kv, d, causal = shape
+    g = _gen(dev, seed)
+    q, do = (torch.randn(b, sq, h, d, generator=g, device=dev)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, sk, kv, d, generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    qp = torch.arange(sq, dtype=torch.int32, device=dev)[None].expand(b, sq)
+    kp = torch.arange(sk, dtype=torch.int32, device=dev)[None].expand(b, sk)
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    return (q, k, v, qp, kp, d ** -0.5, 0, causal), do, \
+        4.0 * b * h * d * pairs
+
+
+def attention_plain_error(args, do) -> float:
+    """The kernel's out, dq, dk and dv against its plain version's, the
+    largest difference over each one's largest entry, on the first batch
+    row and KV group (the plain version holds the dense scores: the whole
+    of starcoder2's would not fit beside the rest)."""
+    from repro_torch.kernels import attention as FA
+    q, k, v, qp, kp, scale, window, causal = args
+    rep = q.shape[2] // k.shape[2]
+    one = (q[:1, :, :rep], k[:1, :, :1], v[:1, :, :1], qp[:1], kp[:1])
+    rest, dgo = (scale, window, causal), do[:1, :, :rep]
+    o, lse = FA._forward(*one, *rest)
+    po, plse = FA.forward_plain(*one, *rest)
+    mine = (o,) + FA._backward(dgo, *one, o, lse, *rest)
+    ref = (po,) + FA.backward_plain(dgo, *one, po, plse, *rest)
+    return max(float((a.float() - r.float()).abs().max()
+                     / r.float().abs().max()) for a, r in zip(mine, ref))
+
+
+def _graph(fn, leaves):
+    """``fn`` run once on fresh leaves: (output, leaves), for timing the
+    backward alone on the kept graph."""
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    return fn(*leaves), leaves
+
+
+def attention_calls(args, do):
+    """{part: {kernel, eager, library: (set-up, call)}}: the kernel's
+    forward and backward, the eager route they replace (``layers.attention``
+    in query chunks of 512, as the parent step ran) and torch's SDPA as the
+    yardstick (the port never calls it).  A backward's set-up builds the
+    graph it pulls through (dropped when the next set-up runs)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention as FA
+    from repro_torch.models import layers as L
+    q, k, v, qp, kp, scale, window, causal = args
+    rep = q.shape[2] // k.shape[2]
+
+    def eager(q, k, v):
+        return L.attention(q, k, v, qp, kp, causal=causal, q_chunk=512)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, scale=scale, enable_gqa=rep > 1).transpose(1, 2)
+
+    held = {}
+
+    def graph(fn):
+        def setup():
+            held.clear()
+            held["out"], held["leaves"] = _graph(fn, (q, k, v))
+        return setup
+
+    def pull():
+        return torch.autograd.grad(held["out"], held["leaves"], do,
+                                   retain_graph=True)
+
+    def kernel_setup():
+        held.clear()
+        held["o"], held["lse"] = FA._forward(*args)
+
+    def kernel_backward():
+        return FA._backward(do, *args[:5], held["o"], held["lse"], *args[5:])
+
+    none = held.clear
+    return {
+        "forward": {"kernel": (none, lambda: FA._forward(*args)),
+                    "eager": (none, lambda: eager(q, k, v)),
+                    "library": (none, lambda: sdpa(q, k, v))},
+        "backward": {"kernel": (kernel_setup, kernel_backward),
+                     "eager": (graph(eager), pull),
+                     "library": (graph(sdpa), pull)}}
+
+
+def _attention_rows(label, shape, ctx: Context, seed: int) -> List[Row]:
+    """The kernel's forward and backward against their FLOP bound, the
+    eager route and SDPA (``attention_calls``)."""
+    dev = ctx.device
+    args, do, flops = _attention_operands(dev, shape, seed)
+    calls = attention_calls(args, do)
+    causal = args[-1]
+    err = attention_plain_error(args, do) if ctx.cuda else None
+    if err is not None and err > 1e-2:
+        raise AssertionError(f"attention {label}: the kernel differs from "
+                             f"its plain version by {err} of the largest "
+                             f"entry")
+    rows = []
+    for part, ops_ in (("forward", flops), ("backward", 2.5 * flops)):
+        bound_us = ops_ / PEAK_BF16 * 1e6
+        name = (f"attention {part} {label} [{shape[0]}, {shape[1]}x"
+                f"{shape[2]}, {shape[3]}/{shape[4]} heads, {shape[5]}]"
+                f"{' causal' if causal else ''}")
+        if not ctx.cuda:
+            setup, fn = calls[part]["eager"]
+            setup()
+            plain = host_us(fn, dev, reps=1 if ctx.fast else 3)
+            rows.append((f"kernel/attention_{part}_{label}", plain,
+                         f"{name}: device=cpu: the eager route only, no "
+                         f"kernel runs on the CPU; plain_host_us={plain:.1f}"
+                         f" h100_bound_us={bound_us:.3f}"))
+            continue
+        n = 3 if ctx.fast else 10
+        times = {}
+        for who, (setup, fn) in calls[part].items():
+            setup()
+            times[who] = device_trace(fn, n)
+        us, per_call, names = times["kernel"]
+        share = None if not us else 100.0 * bound_us / us
+        rows.append((
+            f"kernel/attention_{part}_{label}",
+            float("nan") if us is None else us,
+            f"{name}: device_us={fmt(us)} (torch.profiler CUDA trace, "
+            f"{per_call:g} kernels a call {names}) bound_us={bound_us:.3f} "
+            f"({ops_:.4g} FLOPs at {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16) "
+            f"roofline_share={fmt(share, 1)}% eager_us="
+            f"{fmt(times['eager'][0])} (layers.attention in chunks of 512) "
+            f"library_us={fmt(times['library'][0])} (torch SDPA, yardstick "
+            f"only) max_rel_err={err:.3g} (one batch row and KV group); "
+            f"inputs warm"))
+    calls.clear()
+    return rows
+
+
+def attention_rows(ctx: Context) -> List[Row]:
+    shapes = ATTENTION_TOY if ctx.fast and not ctx.cuda else ATTENTION
+    rows = []
+    for i, (label, shape) in enumerate(shapes.items()):
+        rows += _attention_rows(label, shape, ctx, 20 + i)
+    return rows
 
 
 SUITES = [("kernel", kernel_suite), ("kernel/b1_probe", b1_probe)]

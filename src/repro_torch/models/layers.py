@@ -6,7 +6,8 @@ draws from an explicit ``torch.Generator`` on its device, and
 ``*_apply(p, x, ...)`` takes the layer's flat params dict.  Attention is
 q-chunked (a loop over query blocks against the full K/V with masking), as
 the reference's scan is, so a long prefill never materialises an S x S
-score matrix.  Every ``init_*`` takes ``lead``, the leading stack shape of
+score matrix; on the card, without a cache, it takes the fused kernel
+(``kernels/attention.py``), which writes no scores at all.  Every ``init_*`` takes ``lead``, the leading stack shape of
 the reference's stacked ``[L, ...]`` leaves, and draws the whole stack at
 once.
 """
@@ -18,9 +19,10 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-Params = Dict[str, torch.Tensor]
+from repro_torch.kernels import attention as FA
+from repro_torch.obs import spans
 
-_INVALID_POS = 2**31 // 2 - 1       # int32 max // 2: an empty cache slot
+Params = Dict[str, torch.Tensor]
 
 
 def _init(gen: torch.Generator, shape: Sequence[int], scale=None,
@@ -66,8 +68,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     half = x.shape[-1] // 2
     expo = -torch.arange(0, half, dtype=torch.float32,
                          device=x.device) / half
-    freq = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                  device=x.device), expo)
+    # theta rounded to f32 on the host and passed as the power's scalar
+    # base: the same bits as a 0-d device tensor, whose creation is a
+    # blocking host-to-device copy (it held the host to the card's pace at
+    # every call)
+    base = float(torch.tensor(theta, dtype=torch.float32))
+    freq = torch.pow(base, expo)
     ang = positions[..., None].to(torch.float32) * freq    # [..., S, half]
     ang = ang[..., None, :]                                # [..., S, 1, half]
     cos, sin = torch.cos(ang).to(x.dtype), torch.sin(ang).to(x.dtype)
@@ -121,23 +127,24 @@ def embed(table: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
     return table[tok]
 
 
-def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
-          causal: bool) -> torch.Tensor:
-    """[B, Sq, Sk] mask from q_pos [B, Sq], k_pos [B, Sk]: causal, and
-    |q - k| < window when window > 0."""
-    if causal:
-        m = q_pos[:, :, None] >= k_pos[:, None, :]
-    else:
-        # still exclude invalid (sentinel-position) cache slots
-        m = (k_pos[:, None, :] < _INVALID_POS).expand(
-            q_pos.shape[0], q_pos.shape[1], k_pos.shape[1])
-    if window > 0:
-        m = m & ((q_pos[:, :, None] - k_pos[:, None, :]) < window)
-    return m
+def fused_route(q, k, v, *, lanes=None, softmax_dtype=torch.float32,
+                fusable: bool = False) -> bool:
+    """``attention`` takes the hand-written kernel
+    (``kernels/attention.py::flash_attention``): q, k and v are bf16 CUDA
+    tensors, not DTensors, no lane group splits the head dim, the softmax
+    is in f32, the head dim is 64 or 128, and the caller vouches that every
+    query row keeps a key (``fusable``: no cache).  Everything else (the
+    CPU, decode's ring cache, the sharded heads) runs ``_attn_block``."""
+    from torch.distributed.tensor import DTensor
+    return (fusable and lanes is None and softmax_dtype == torch.float32
+            and q.shape[-1] in FA.CONFIGS
+            and all(t.device.type == "cuda" and t.dtype == torch.bfloat16
+                    and not isinstance(t, DTensor) for t in (q, k, v)))
 
 
 def attention(q, k, v, q_pos, k_pos, *, window: int = 0, q_chunk: int = 512,
-              causal: bool = True, softmax_dtype=torch.float32, lanes=None):
+              causal: bool = True, softmax_dtype=torch.float32, lanes=None,
+              fusable: bool = False):
     """q: [B, Sq, H, D]; k, v: [B, Sk, KV, D]; grouped-query attention.
 
     Loops over query chunks of ``q_chunk`` when Sq is a multiple of it (and
@@ -145,13 +152,21 @@ def attention(q, k, v, q_pos, k_pos, *, window: int = 0, q_chunk: int = 512,
     ``lanes``: the process group over which D is split (each rank holds its
     own lanes of q, k and v): the score products are summed over it and
     the output gathered, so the result holds every lane; the scale is the
-    whole head dim's.
+    whole head dim's.  On ``fused_route`` (``fusable``: the caller passed
+    no cache) the fused kernel takes the whole query length at once: the
+    chunks existed only to bound the scores' memory, which it never
+    writes.
     """
     b, sq, h, d = q.shape
     kv = k.shape[2]
     assert h % kv == 0
     rep = h // kv
     scale = (d * (1 if lanes is None else lanes.size())) ** -0.5
+    if fused_route(q, k, v, lanes=lanes, softmax_dtype=softmax_dtype,
+                   fusable=fusable):
+        spans.count(attn_fused=1)
+        return FA.flash_attention(q, k, v, q_pos, k_pos, scale=scale,
+                                  window=window, causal=causal)
     if q_pos.dim() == 1:
         q_pos = q_pos.expand(b, sq)
     if k_pos.dim() == 1:
@@ -177,7 +192,7 @@ def _attn_block(q, k, v, q_pos, k_pos, rep, scale, window, causal,
         scores = _GroupSum.apply(scores.to(torch.promote_types(
             scores.dtype, softmax_dtype)), lanes)
     scores = scores.to(softmax_dtype) * scale
-    mask = _mask(q_pos, k_pos, window, causal)
+    mask = FA.mask(q_pos, k_pos, window, causal)
     scores = torch.where(mask[:, None, None], scores,
                          torch.finfo(softmax_dtype).min)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -455,7 +470,7 @@ def init_attn_cache(b, cache_len, n_kv, head_dim, dtype=torch.bfloat16,
                          device=device),
         "v": torch.zeros(lead + (b, cache_len, n_kv, head_dim), dtype=dtype,
                          device=device),
-        "pos": torch.full(lead + (cache_len,), _INVALID_POS,
+        "pos": torch.full(lead + (cache_len,), FA.INVALID_POS,
                           dtype=torch.int32, device=device),
     }
 
@@ -463,7 +478,8 @@ def init_attn_cache(b, cache_len, n_kv, head_dim, dtype=torch.bfloat16,
 def attn_apply(p: Params, x, positions, *, n_heads, n_kv, head_dim, window=0,
                causal=True, rope_theta=10000.0, q_chunk=512,
                softmax_dtype=torch.float32, cache: Optional[Params] = None,
-               pos: Optional[int] = None, cross_kv=None):
+               pos: Optional[int] = None, cross_kv=None,
+               decode: bool = False):
     """Self- or cross-attention.  Returns (y, cache).
 
     cache: optional ring-buffer cache (decode), updated in place: the new
@@ -471,6 +487,9 @@ def attn_apply(p: Params, x, positions, *, n_heads, n_kv, head_dim, window=0,
     cache using the absolute positions stored per slot.
     cross_kv: optional precomputed (k, v, k_pos) for encoder-decoder
     cross-attention, k and v [B, F, n_kv * head_dim].
+    decode: the caller's step holds a cache (a cross-attention has none of
+    its own): the eager ``_attn_block`` then, as for a self-attention with
+    a cache; without one ``attention`` may take the fused kernel.
     On DTensors each rank runs its block of the heads
     (``_sharded_attention``).
     """
@@ -493,7 +512,7 @@ def attn_apply(p: Params, x, positions, *, n_heads, n_kv, head_dim, window=0,
         out = attention(q.reshape(b, s, n_heads, head_dim),
                         ck.reshape(b, f, n_kv, head_dim),
                         cv.reshape(b, f, n_kv, head_dim), positions, k_pos,
-                        window=0, causal=False, **kw)
+                        window=0, causal=False, fusable=not decode, **kw)
         return out.reshape(b, s, -1) @ p["wo"], None
 
     k, v = x @ p["wk"], x @ p["wv"]
@@ -525,7 +544,8 @@ def attn_apply(p: Params, x, positions, *, n_heads, n_kv, head_dim, window=0,
     if rope_theta:
         q = rope(q, positions, rope_theta)
     out = attention(q, k, v, positions, k_pos, window=window,
-                    causal=cache is not None or causal, **kw)
+                    causal=cache is not None or causal,
+                    fusable=cache is None, **kw)
     return out.reshape(b, s, -1) @ p["wo"], cache
 
 

@@ -26,7 +26,10 @@ or no gradient wanted) run the layers as they are.
 While a profiler runs, attention (self and cross, with its input norm),
 the MLP (with its norm) and the head (the final norm and the chunked
 cross-entropy) are the phases ``grads/attention``, ``grads/mlp`` and
-``grads/head`` (``obs/spans.py``), their backward included.
+``grads/head`` (``obs/spans.py``), their backward included.  Each
+attention's record counts ``attn_fused``: 1 where the call went through the
+fused kernel (``layers.attention`` counts it), 0 where it ran the eager
+ops.
 """
 from __future__ import annotations
 
@@ -146,7 +149,7 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
             window = cfg.local_window
         elif cfg.attn_kind == "sliding":
             window = cfg.window
-        with spans.phase("grads/attention") as ph:
+        with spans.phase("grads/attention", attn_fused=0) as ph:
             y, _ = L.attn_apply(
                 _cast(sub(p, "attn"), cd), norm(p["ln1"], x), positions,
                 n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
@@ -158,13 +161,14 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
         x = x + y
         xattn = sub(p, "xattn")
         if xattn:
-            with spans.phase("grads/attention") as ph:
+            with spans.phase("grads/attention", attn_fused=0) as ph:
                 y, _ = L.attn_apply(_cast(xattn, cd), norm(p["lnx"], x),
                                     positions, n_heads=cfg.n_heads,
                                     n_kv=cfg.n_kv, head_dim=cfg.hd,
                                     causal=False,
                                     rope_theta=cfg.rope_theta,
-                                    q_chunk=cfg.q_chunk, cross_kv=cross_kv)
+                                    q_chunk=cfg.q_chunk, cross_kv=cross_kv,
+                                    decode=cache is not None)
                 ph.backward(x, y)
             x = x + y
 

@@ -244,6 +244,13 @@ class phase:
             x.register_hook(block.close)
 
 
+def count(**counts) -> None:
+    """Add ``counts`` to the record of the innermost open phase, where one
+    is open: numbers known only inside the region, where it is run."""
+    if _OPEN:
+        _OPEN[-1].counts.update(counts)
+
+
 @contextlib.contextmanager
 def no_phases():
     """Keep ``phase`` off inside, a profiler running or not: for a capture

@@ -855,3 +855,238 @@ def test_dry_run_moves_no_device_memory(cuda_device):
     rec = dryrun.lower_one("starcoder2-7b", "decode_32k", batch=4, seq=64)
     assert rec["status"] == "ok" and rec["peak_bytes"] > rec["param_bytes"]
     assert torch.cuda.memory_allocated(cuda_device) == before
+
+
+# ---------------------------------------------------------------------------
+# the fused attention (kernels/attention.py)
+# ---------------------------------------------------------------------------
+
+# b, sq, sk, h, kv, d, causal, window: the cells' own shapes (whisper-tiny's
+# encoder, decoder and cross attention at 2 rows, one row of starcoder2-7b's
+# causal GQA at 4096) and a window
+ATTN_CASES = {
+    "encoder": (2, 1500, 1500, 6, 6, 64, False, 0),
+    "decoder": (2, 448, 448, 6, 6, 64, True, 0),
+    "cross": (2, 448, 1500, 6, 6, 64, False, 0),
+    "gqa_4096": (1, 4096, 4096, 36, 4, 128, True, 0),
+    "window": (2, 1000, 1000, 8, 2, 128, True, 256),
+}
+
+
+def _attn_inputs(spec, dev, seed=0):
+    b, sq, sk, h, kv, d, causal, window = spec
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, sq, h, d, generator=gen, device=dev).to(BF16)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, kv, d, generator=gen, device=dev).to(BF16)
+            for _ in range(2))
+    qp = torch.arange(sq, dtype=torch.int32, device=dev)[None].expand(b, sq)
+    kp = torch.arange(sk, device=dev)           # int64 and 1-D, as cross's
+    return q, k, v, do, qp, kp, causal, window
+
+
+def _block_grads(q, k, v, do, qp, kp, causal, window, dtype):
+    """``_attn_block`` (the eager route) with its operands in ``dtype``:
+    out and (dq, dk, dv)."""
+    from repro_torch.models import layers as L
+    leaves = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+    b, sk = k.shape[:2]
+    out = L._attn_block(*leaves, qp, kp[None].expand(b, sk),
+                        q.shape[2] // k.shape[2], q.shape[-1] ** -0.5, window,
+                        causal, torch.float32)
+    return out, torch.autograd.grad(out, leaves, do.to(dtype))
+
+
+def _rel(a, r):
+    r = r.detach().float()
+    return float((a.detach().float() - r).abs().max() / r.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ATTN_CASES))
+def test_flash_attention_kernel_matches_attn_block(cuda_device, name):
+    """out, dq, dk and dv of the kernel against ``_attn_block`` run in f32
+    and in bf16.  Against f32, within 1e-2 of the largest entry: the kernel
+    rounds P and dS to bf16 for their products and its outputs to bf16
+    (2**-8 relative each), over sums of up to 4096 terms.  Against the bf16
+    block, within 3e-2: that block also rounds its scores to bf16 before the
+    softmax (about 0.01 absolute on scores of unit size).  And the kernel
+    stays at least as close to f32 as the bf16 block is, within 1e-3: its
+    scores are f32 from the product.  One launch a forward, two a backward,
+    and a second backward gives the same bits (no atomics)."""
+    from repro_torch.kernels import attention as FA
+    q, k, v, do, qp, kp, causal, window = _attn_inputs(ATTN_CASES[name],
+                                                       cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(*leaves, qp, kp, scale=q.shape[-1] ** -0.5,
+                             window=window, causal=causal)
+    grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 5
+    assert out.dtype == BF16 and all(g.dtype == BF16 for g in grads)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    o32, g32 = _block_grads(q, k, v, do, qp, kp, causal, window,
+                            torch.float32)
+    o16, g16 = _block_grads(q, k, v, do, qp, kp, causal, window, BF16)
+    for mine, r32, r16 in zip((out, *grads), (o32, *g32), (o16, *g16)):
+        assert torch.isfinite(mine).all()
+        assert _rel(mine, r32) <= 1e-2, (name, _rel(mine, r32))
+        assert _rel(mine, r16) <= 3e-2, (name, _rel(mine, r16))
+        assert _rel(mine, r32) <= _rel(r16, r32) + 1e-3, (
+            name, _rel(mine, r32), _rel(r16, r32))
+
+
+def _attn_loss(q, k, v, pos):
+    from repro_torch.kernels import attention as FA
+    out = FA.flash_attention(q, k, v, pos, pos, scale=0.125, causal=True)
+    return out.float().square().mean()
+
+
+@pytest.mark.cuda
+def test_flash_attention_vmap_grad_equals_the_loop(cuda_device):
+    """``vmap(grad_and_value)`` over 3 workers, the batch folded into the
+    launch, equals the loop over the workers: the gradients bit for bit
+    (each row's programs compute the same tiles in the same order), the
+    loss to rtol 1e-6 (its mean is torch's reduction, which sums a
+    vmapped batch in another order on the card)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    w, b, s, h, kv, d = 3, 2, 448, 6, 6, 64
+    qs = torch.randn(w, b, s, h, d, generator=gen, device=cuda_device)
+    ks, vs = (torch.randn(w, b, s, kv, d, generator=gen, device=cuda_device)
+              for _ in range(2))
+    qs, ks, vs = (t.to(BF16) for t in (qs, ks, vs))
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)[None]
+    fn = torch.func.grad_and_value(_attn_loss, argnums=(0, 1, 2))
+    grads, vals = torch.func.vmap(fn, in_dims=(0, 0, 0, None))(qs, ks, vs,
+                                                               pos)
+    for i in range(w):
+        gi, vi = fn(qs[i], ks[i], vs[i], pos)
+        torch.testing.assert_close(vals[i], vi, rtol=1e-6, atol=0)
+        assert all(torch.equal(a[i], r) for a, r in zip(grads, gi))
+
+
+@pytest.mark.cuda
+def test_flash_attention_under_remat_changes_no_bit(cuda_device):
+    """Through remat's checkpoint (the recompute under ``torch.func.vjp``)
+    under ``vmap(grad_and_value)``: the gradients without it, bit for
+    bit."""
+    from repro_torch.kernels import attention as FA
+    from repro_torch.models import remat as RM
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    w, b, s, h, d = 2, 2, 448, 6, 64
+    x = torch.randn(w, b, s, h * d, generator=gen, device=cuda_device)
+    wq = torch.randn(h * d, h * d, generator=gen, device=cuda_device) * 0.05
+    pos = torch.arange(s, dtype=torch.int32, device=cuda_device)[None]
+
+    def body(x, pos, wq):
+        q = (x @ wq).to(BF16).reshape(b, s, h, d)
+        return (FA.flash_attention(q, q, q, pos, pos, scale=0.125)
+                .reshape(b, s, h * d),)
+
+    def loss(wq, x, remat):
+        y, = (RM.checkpoint(body, RM.saved_products(None), x, pos, wq)
+              if remat else body(x, pos, wq))
+        return y.float().square().mean()
+
+    outs = [torch.func.vmap(torch.func.grad_and_value(loss),
+                            in_dims=(None, 0, None))(wq, x, remat)
+            for remat in (False, True)]
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,heads,kv", [("whisper-tiny", 2, 2),
+                                           ("starcoder2-7b", 4, 2)])
+def test_fused_attention_counts_of_one_step(cuda_device, arch, heads, kv):
+    """One traced Artemis step (W = 2, remat on) of a reduced arch at head
+    dim 64: each attention call launches the forward twice (the forward
+    and remat's recompute) and the backward once (two kernels), and its
+    forward records count ``attn_fused`` 1 each."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.core import dist
+    from repro_torch.kernels import attention as FA
+    from repro_torch.models.model import build_model
+    from repro_torch.obs import spans
+    from repro_torch.optim import adam
+    cfg = dataclasses.replace(get_config(arch, reduced=True), remat=True,
+                              n_heads=heads, n_kv=kv)
+    assert cfg.hd == 64
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 64), generator=gen,
+                                     device=cuda_device)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(4, cfg.n_frames, cfg.d_model,
+                                      generator=gen, device=cuda_device)
+    calls = (cfg.enc_layers + 2 * cfg.n_layers if cfg.family == "encdec"
+             else cfg.n_layers)
+    dcfg = dist.DistConfig(seed=5, bucket_bytes=4096, max_buckets=16,
+                           bucket_row=64)
+    init, step = dist.make_train_step(model, adam(1e-3), dcfg, 2, cuda_device)
+    state = init(params)
+    state, _ = step(state, batch)                    # builds the kernels
+    spans.reset()
+    before = FA.flash_attention.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state, (loss, _) = step(state, batch)
+        torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert FA.flash_attention.launches - before == 4 * calls
+    counts = [r.counts.get("attn_fused") for r in spans.phases()
+              if r.name == "grads/attention" and r.pass_ != spans.BACKWARD]
+    assert counts == [1] * (2 * calls)
+
+
+@pytest.mark.cuda
+def test_decode_keeps_the_eager_attention_on_card(cuda_device):
+    """A decode step of reduced whisper-tiny at head dim 64 on bf16 CUDA
+    tensors launches the fused attention 0 times: its self-attention holds
+    the cache and its cross-attention is told so; the encoder before it
+    (no cache) launches it, once a layer."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as FA
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config("whisper-tiny", reduced=True),
+                              n_heads=2, n_kv=2)
+    assert cfg.hd == 64
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    frames = torch.randn(2, cfg.n_frames, cfg.d_model, generator=gen,
+                         device=cuda_device)
+    tok = torch.randint(0, cfg.vocab, (2,), generator=gen,
+                        device=cuda_device)
+    with torch.no_grad():
+        before = FA.flash_attention.launches
+        enc = model._encode(params, frames)
+        encoded = FA.flash_attention.launches - before
+        cache = model.init_cache(2, 16, device=cuda_device)
+        before = FA.flash_attention.launches
+        for pos in range(3):
+            logits, cache = model.decode_step(params, cache, tok, pos,
+                                              enc_out=enc)
+        torch.cuda.synchronize()
+    assert encoded == cfg.enc_layers
+    assert FA.flash_attention.launches - before == 0
+    assert torch.isfinite(logits).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta,half", [(10000.0, 32), (1e6, 64)])
+def test_rope_scalar_base_same_bits_on_card(cuda_device, theta, half):
+    """``layers.rope`` raises theta to the exponents with theta as the
+    power's scalar base (no host-to-device copy): the same bits as theta
+    as a 0-d device tensor, on the card as on the CPU."""
+    expo = -torch.arange(0, half, dtype=torch.float32,
+                         device=cuda_device) / half
+    ref = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                 device=cuda_device), expo)
+    assert torch.equal(torch.pow(float(torch.tensor(
+        theta, dtype=torch.float32)), expo), ref)
