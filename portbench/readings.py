@@ -4,14 +4,15 @@ on the card at the cell's own size, in one process:
     python3 portbench/readings.py --workload <cell> --seeds 11,12,... \
         [--control-seeds 11,12,13] [--fault-seeds 11,12,13] [--out FILE]
 
-For each seed of ``--seeds``, the program's checked steps against the plain
-reference's (the sound runs: the lower readings).  For each of
-``--control-seeds``, the control, the reference in the program's place
-through float8 products, against the same reference; for each of
-``--fault-seeds``, the reference in the program's place with each fault of
-``portbench/reference/train.py`` that the cell can have (the exchange only
-where the wire has more than one worker).  One JSON line a reading, on
-standard output and appended to ``--out``.
+Each side comes from the cell's own runner (its ``program_readings`` and
+``reference_readings``).  For each seed of ``--seeds``, the program's
+checked steps against the plain reference's (the sound runs: the lower
+readings).  For each of ``--control-seeds``, the control, the reference in
+the program's place through float8 products, against the same reference;
+for each of ``--fault-seeds``, the reference in the program's place with
+each fault of ``portbench/reference/train.py`` that the cell can have (the
+exchange only where the wire has more than one worker).  One JSON line a
+reading, on standard output and appended to ``--out``.
 """
 import argparse
 import json
@@ -40,12 +41,16 @@ def main(argv=None) -> int:
             sys.path.insert(0, str(p))
     import torch
     from portbench import check
-    from portbench.bench import load_cell
-    from portbench.runners import simulated_train as ST
+    from portbench.bench import load_cell, runner
     if not torch.cuda.is_available():
         print("portbench readings: no CUDA device", file=sys.stderr)
         return 3
     cell = load_cell(args.workload, ROOT)
+    if torch.cuda.device_count() < cell.chips:
+        print(f"portbench readings: {torch.cuda.device_count()} CUDA "
+              f"devices, the cell needs {cell.chips}", file=sys.stderr)
+        return 3
+    run = runner(cell.traffic["runner"], ROOT)
     dev = torch.device("cuda", 0)
     wire = cell.traffic.get("wire")
     faults = ["half_batch"] + (["no_exchange"]
@@ -69,22 +74,22 @@ def main(argv=None) -> int:
                        + _seeds(args.fault_seeds)))
     for seed in seeds:
         t = time.time()
-        ref = ST.reference_readings(cell, seed, dev)
+        ref = run.reference_readings(cell, seed, dev)
         if seed in _seeds(args.seeds):
             t = time.time()
-            prog = ST.program_readings(cell, seed, dev)
+            prog = run.program_readings(cell, seed, dev)
             torch.cuda.empty_cache()
             emit("program", seed, prog, ref, t)
         if seed in _seeds(args.control_seeds):
             t = time.time()
             emit("control", seed,
-                 ST.reference_readings(cell, seed, dev, precision="fp8"),
+                 run.reference_readings(cell, seed, dev, precision="fp8"),
                  ref, t)
         if seed in _seeds(args.fault_seeds):
             for fault in faults:
                 t = time.time()
                 emit(fault, seed,
-                     ST.reference_readings(cell, seed, dev, fault=fault),
+                     run.reference_readings(cell, seed, dev, fault=fault),
                      ref, t)
         torch.cuda.empty_cache()
     if out:

@@ -19,6 +19,8 @@ a norm's zeros).
 product takes its operands rounded to float8 (e4m3, scaled per tensor to
 its largest magnitude) in the forward pass, and its output gradient rounded
 to float8 (e5m2, scaled alike) in the backward pass.
+
+A step's model FLOPs (``step_flops``) are ``portbench/flops.py``'s count.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import math
 from typing import Dict, List, Tuple
 
 import torch
+
+from portbench.flops import step_flops  # noqa: F401  (REFERENCE_API)
 
 Params = Dict[str, torch.Tensor]
 Spec = List[Tuple[str, Tuple[int, ...], float]]

@@ -28,6 +28,11 @@ program.
 this reference, put in the program's place: ``"half_batch"`` (each
 worker's gradient over the first half of its rows) or ``"no_exchange"``
 (each worker's sum holds only its own message).
+
+The model's side (parameters, loss and gradient, the products' precision)
+is the configuration's reference module, which the caller hands in
+(``portbench.reference.for_config``); the workers, the wire and Adam are
+the same for every family.
 """
 from __future__ import annotations
 
@@ -35,8 +40,6 @@ import math
 from typing import Dict, List, Optional, Sequence
 
 import torch
-
-from portbench.reference import model as M
 
 FAULTS = ("half_batch", "no_exchange")
 
@@ -107,15 +110,16 @@ def _norms(ts: Sequence[torch.Tensor]) -> List[float]:
 
 
 def train(cfg: dict, traffic: dict, weights: Dict[str, torch.Tensor],
-          batches: Sequence[dict], seed: int, *, precision: str = "f32",
-          fault: Optional[str] = None) -> dict:
+          batches: Sequence[dict], seed: int, *, model,
+          precision: str = "f32", fault: Optional[str] = None) -> dict:
     """``len(batches)`` training steps from ``weights``: the readings the
     benchmark compares (losses, the first step's gradient as Adam takes
     it, each leaf's change, the memories' norms) and the raw mean
-    gradient's norms of the first step."""
+    gradient's norms of the first step.  ``model`` is the configuration's
+    reference module."""
     if fault is not None and fault not in FAULTS:
         raise ValueError(f"fault {fault!r} not in {FAULTS}")
-    num = M.Numerics(precision)
+    num = model.Numerics(precision)
     opt, wire = traffic["optimizer"], traffic.get("wire")
     workers = traffic["workers"] if wire else 1
     block = traffic["reference_block"]
@@ -143,8 +147,8 @@ def train(cfg: dict, traffic: dict, weights: Dict[str, torch.Tensor],
             stack = torch.empty((workers, padded), device=dev)
             losses = []
             for w in range(workers):
-                loss_w, g = M.mean_loss_grad(
-                    num, cfg, p, M.rows(batch, w * per, w * per + take),
+                loss_w, g = model.mean_loss_grad(
+                    num, cfg, p, model.rows(batch, w * per, w * per + take),
                     block)
                 stack[w] = _flat(g, padded)
                 losses.append(loss_w)
@@ -160,8 +164,8 @@ def train(cfg: dict, traffic: dict, weights: Dict[str, torch.Tensor],
             del stack, u_up
             grads = _leaves(ghat.reshape(-1)[:total], shapes)
         else:
-            loss, grads = M.mean_loss_grad(num, cfg, p,
-                                           M.rows(batch, 0, take), block)
+            loss, grads = model.mean_loss_grad(num, cfg, p,
+                                           model.rows(batch, 0, take), block)
             if k == 0:
                 out["raw_grad_norms"] = _norms(grads)
         out["losses"].append(loss)

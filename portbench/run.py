@@ -74,12 +74,15 @@ def main(argv=None) -> int:
         return _fail(3, f"{torch.cuda.device_count()} CUDA devices, the "
                         f"cell needs {cell.chips}")
 
-    from portbench.bench import runner
+    from portbench.bench import Run, runner
     from portbench.check import lines
-    run = runner(cell.traffic["runner"])
-    result = run.run(run.Run(cell=cell, seed=args.seed,
-                             seconds=args.seconds, trace=bool(args.trace),
-                             device=torch.device("cuda", 0), t0=T0))
+    run = runner(cell.traffic["runner"], ROOT)
+    if cell.chips not in run.CHIPS:
+        return _fail(2, f"runner {cell.traffic['runner']!r} runs on "
+                        f"{run.CHIPS} chips, the cell asks for {cell.chips}")
+    result = run.run(Run(cell=cell, seed=args.seed, seconds=args.seconds,
+                         trace=bool(args.trace),
+                         device=torch.device("cuda", 0), t0=T0))
     leaked = forbidden_modules(sys.modules)
     if leaked:
         return _fail(4, f"JAX or the JAX package was loaded: {leaked}")

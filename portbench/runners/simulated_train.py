@@ -17,8 +17,14 @@ A run:
    garbage collected before it; with ``--trace 1``, after it, one step and
    then a stretch of ``TRACE_SHARE`` of the window under the profiler;
 3. after the window, the program's state freed: the plain reference
-   (``portbench/reference/train.py``) takes the same weights and batches
-   and the comparison (``portbench/check.py``) decides ``correct``.
+   (``portbench/reference/train.py`` over the configuration's reference
+   module, ``portbench.reference.for_config``) takes the same weights and
+   batches and the comparison (``portbench/check.py``) decides
+   ``correct``.
+
+Any family whose configuration names a reference module runs here: the
+module gives the parameters, the loss and the FLOPs; the workers, the
+wire, Adam, the window, the trace and the check are this runner's.
 """
 from __future__ import annotations
 
@@ -30,28 +36,19 @@ from typing import Dict, List, Optional
 
 import torch
 
-from portbench import check, flops
+from portbench import check
 from portbench import trace as TR
-from portbench.bench import Cell, metric_reader
-from portbench.reference import model as RM
+from portbench.bench import Cell, Run, metric_reader
+from portbench.reference import for_config
 from portbench.reference import train as RT
 from portbench.traffic import generator as G
 from portbench.weights import make_weights
 
+CHIPS = (1,)              # the chip counts this runner runs on
 GIB = float(1 << 30)
 POOL = 4                  # batches made in set-up, cycled by the window
 CHECKED_STEPS = 3         # the steps the check compares (the limits' own)
 TRACE_SHARE = 0.25        # the traced stretch, a share of the window
-
-
-@dataclasses.dataclass
-class Run:
-    cell: Cell
-    seed: int
-    seconds: float
-    trace: bool
-    device: torch.device
-    t0: float                 # the process's start, host clock
 
 
 def program_config(cfg: dict):
@@ -104,7 +101,7 @@ def build_step(cell: Cell, seed: int, dev: torch.device):
 
 def inputs(cell: Cell, seed: int, dev: torch.device, count: int):
     """The run's weights and its first ``count`` batches."""
-    spec = RM.param_spec(cell.config)
+    spec = for_config(cell.config, cell.root).param_spec(cell.config)
     return (make_weights(spec, seed, dev),
             G.make_batches(cell.traffic, cell.config, seed, dev, count))
 
@@ -142,12 +139,12 @@ def program_readings(cell: Cell, seed: int, dev: torch.device) -> dict:
 
 
 @contextlib.contextmanager
-def float32_products():
-    """TF32 off for the reference, restored after."""
+def float32_products(ref):
+    """TF32 off for the reference module ``ref``, restored after."""
     saved = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32,
              torch.get_float32_matmul_precision())
-    RM.no_tf32()
+    ref.no_tf32()
     try:
         yield
     finally:
@@ -162,9 +159,10 @@ def reference_readings(cell: Cell, seed: int, dev: torch.device,
     """The plain reference's readings over the checked steps, from the
     run's weights and batches made again."""
     weights, batches = inputs(cell, seed, dev, CHECKED_STEPS)
-    with float32_products():
+    ref = for_config(cell.config, cell.root)
+    with float32_products(ref):
         return RT.train(cell.config, cell.traffic, weights, batches, seed,
-                        precision=precision, fault=fault)
+                        precision=precision, fault=fault, model=ref)
 
 
 def window(step_fn, state, pool: List[dict], first: int, seconds: float,
@@ -188,13 +186,13 @@ def trace_context(cell: Cell, steps: int, window_s: float) -> dict:
     """What the readers need beside the trace, the untraced window's steps
     and seconds (``paced``) among it."""
     tr, cfg = cell.traffic, cell.config
-    ctx = {"flops_per_step": flops.step_flops(
-        cfg, tr["rows"], tr["seq"],
-        cfg["n_frames"] if cfg["family"] == "encdec" else 0), "wire": None,
+    ref = for_config(cfg, cell.root)
+    ctx = {"flops_per_step": ref.step_flops(
+        cfg, tr["rows"], tr["seq"], tr.get("frames", 0)), "wire": None,
         "paced": {"steps": steps, "seconds": window_s}}
     if tr.get("wire"):
         w = tr["wire"]
-        total = RM.param_count(RM.param_spec(cfg))
+        total = ref.param_count(ref.param_spec(cfg))
         ctx["wire"] = {"workers": tr["workers"], "shape": RT.layout(
             total, w["bucket_bytes"], w["max_buckets"], w["row"])}
     return ctx

@@ -1,25 +1,29 @@
 """The check catches what it is there to catch: a whole run of each cell at
-the REDUCED size on the CPU (the harness's look for a card skipped), with
+its CPU size (``tests/sizes/``; the harness's look for a card skipped), with
 the program's timed path broken underneath, comes out not correct under
 the cell's own limits; so does the control, the reference put in the
 program's place through float8 products.  The sound program comes out
-correct."""
+correct.  Each cell runs through its own runner."""
 import time
 
 import pytest
 import torch
 
 from portbench import bench, check
-from portbench.runners import simulated_train as ST
-from portbench.tests.conftest import CELLS, ROOT, reduced_cell
+from portbench.tests.conftest import ROOT, SIZED_CELLS, reduced_cell
 
 CPU = torch.device("cpu")
 SEED = 2**31 + 23
 
 
+def _runner(cell):
+    return bench.runner(cell.traffic["runner"], cell.root)
+
+
 def _run(cell):
-    return ST.run(ST.Run(cell=cell, seed=SEED, seconds=0.05, trace=False,
-                         device=CPU, t0=time.perf_counter()))
+    return _runner(cell).run(bench.Run(
+        cell=cell, seed=SEED, seconds=0.05, trace=False, device=CPU,
+        t0=time.perf_counter()))
 
 
 def _unchanged(monkeypatch):
@@ -68,7 +72,7 @@ def _has(fault, cell):
     return fault != "no_exchange" or bool(tr["wire"] and tr["workers"] > 1)
 
 
-@pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS
+@pytest.mark.parametrize("cell,fault", [(c, f) for c in SIZED_CELLS
                                         for f in sorted(FAULTS)
                                         if _has(f, c)])
 def test_a_broken_step_is_not_correct(cell, fault, monkeypatch):
@@ -78,16 +82,16 @@ def test_a_broken_step_is_not_correct(cell, fault, monkeypatch):
     assert out["correct"] is False, out["checks"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SIZED_CELLS)
 def test_the_sound_program_is_correct(cell):
     out = _run(reduced_cell(cell))
     assert out["correct"] is True, out["checks"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SIZED_CELLS)
 def test_the_control_is_not_correct(cell):
     c = reduced_cell(cell)
-    ref = ST.reference_readings(c, SEED, CPU)
-    control = ST.reference_readings(c, SEED, CPU, precision="fp8")
+    ref = _runner(c).reference_readings(c, SEED, CPU)
+    control = _runner(c).reference_readings(c, SEED, CPU, precision="fp8")
     ok, checks = check.judge(check.gaps(control, ref), c.limits)
     assert ok is False, checks

@@ -51,11 +51,12 @@ RUN = """
 import json, sys, time
 import torch
 torch.set_num_threads(1)
-from portbench.tests.conftest import reduced_cell
-from portbench.runners import simulated_train as ST
-cell = reduced_cell("whisper-tiny.fed20")
-r = ST.run(ST.Run(cell=cell, seed=3, seconds=0.2, trace=False,
-                  device=torch.device("cpu"), t0=time.perf_counter()))
+from portbench import bench
+from portbench.tests.conftest import SIZED_CELLS, reduced_cell
+cell = reduced_cell(SIZED_CELLS[0])
+r = bench.runner(cell.traffic["runner"]).run(bench.Run(
+    cell=cell, seed=3, seconds=0.2, trace=False,
+    device=torch.device("cpu"), t0=time.perf_counter()))
 print(json.dumps({"steps": r["attempted"], "modules": sorted(
     m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                                    "repro"))}))

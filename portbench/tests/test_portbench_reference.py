@@ -1,29 +1,30 @@
-"""The plain reference against the port on the CPU, at each configuration's
-REDUCED size: the parameters' names, shapes and order, the noise, one step
-of the wire, and three training steps of every cell (Artemis at W = 2 and
-the plain step)."""
+"""The plain reference against the port on the CPU, at each cell's CPU size
+(``tests/sizes/``): the parameters' names, shapes and order, the noise, one
+step of the wire, and three training steps of every cell (Artemis at W = 2
+and the plain step)."""
 import math
 
 import pytest
 import torch
 
-from portbench import check
-from portbench.reference import model as RM
+from portbench import bench, check
+from portbench.reference import for_config
 from portbench.reference import train as RT
-from portbench.runners import simulated_train as ST
-from portbench.tests.conftest import CELLS, reduced_cell
+from portbench.tests.conftest import SIZED_CELLS, reduced_cell
 
 CPU = torch.device("cpu")
 
 
-@pytest.mark.parametrize("cell", ["whisper-tiny.fed20",
-                                  "starcoder2-7b-1layer.plain"])
+@pytest.mark.parametrize("cell", [c for c in ("whisper-tiny.fed20",
+                                                "starcoder2-7b-1layer.plain")
+                                  if c in SIZED_CELLS])
 def test_param_spec_is_the_ports_flatten_order(cell):
     from repro_torch.models.model import build_model
     c = reduced_cell(cell)
-    model = build_model(ST.program_config(c.config))
+    run = bench.runner(c.traffic["runner"], c.root)
+    model = build_model(run.program_config(c.config))
     params = model.init(torch.Generator().manual_seed(0))
-    spec = RM.param_spec(c.config)
+    spec = for_config(c.config, c.root).param_spec(c.config)
     assert [(k, tuple(v.shape)) for k, v in params.items()] == \
         [(k, s) for k, s, _ in spec]
     # the port's init: a norm's scale at zero, a matrix at 1/sqrt(fan-in)
@@ -70,7 +71,7 @@ def test_one_wire_step_matches_the_ports_aggregate():
         assert close.float().mean() > 0.999
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SIZED_CELLS)
 def test_reference_follows_the_port(cell):
     """Three steps of the port (bf16 products) against the float32
     reference: the gaps stay within the bf16 rounding's reach (about 8
@@ -79,9 +80,10 @@ def test_reference_follows_the_port(cell):
     the quantized broadcast: a level that flips on the rounding moves a
     leaf of a few rows by several percent, so it is held to 0.1."""
     c = reduced_cell(cell)
+    run = bench.runner(c.traffic["runner"], c.root)
     seed = 2**31 + 11
-    gaps = check.gaps(ST.program_readings(c, seed, CPU),
-                      ST.reference_readings(c, seed, CPU))
+    gaps = check.gaps(run.program_readings(c, seed, CPU),
+                      run.reference_readings(c, seed, CPU))
     assert gaps["loss_gap"] < 1e-3
     assert gaps["grad_gap"] < (0.1 if c.traffic["wire"] else 0.03), gaps
     for name in ("change_gap", "h_gap", "hbar_gap"):
