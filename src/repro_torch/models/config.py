@@ -7,6 +7,20 @@ policies the port has).  ``scan_unroll``, the unroll factor of the
 reference's layer scan, stays a field so that a config carries across
 unchanged and has no effect: the port runs its layers in an eager Python
 loop, which has no scan to unroll.
+
+Fields the reference does not have, each off at its default, so that every
+configuration of the registry runs as the reference's does:
+
+* ``experts_held`` (0: all) and ``expert_offset``: an expert layer holds
+  experts ``expert_offset .. expert_offset + experts_held - 1`` of the
+  router's ``n_experts``, one chip's share under expert parallelism
+  (``models/moe.py``);
+* ``rope_yarn_factor`` (0: off) with ``rope_yarn_original``,
+  ``rope_yarn_beta_fast``, ``rope_yarn_beta_slow`` and
+  ``rope_yarn_attn_factor``: YaRN's rotary frequencies and scale on the
+  layers of full attention (``layers.rope``);
+* ``pattern`` in the ``moe`` family: the layers' kinds, ``la+moe`` (local
+  attention within ``local_window``) and ``attn+moe``.
 """
 from __future__ import annotations
 
@@ -62,6 +76,14 @@ class ModelConfig:
     remat_policy: Optional[str] = None   # None = full remat; models/remat.py
     scan_unroll: int = 1             # XLA only: no effect in the port
     source: str = ""            # citation for the assigned config
+    # not in the reference: off at their defaults (see the module's doc)
+    experts_held: int = 0       # 0 = every expert
+    expert_offset: int = 0
+    rope_yarn_factor: float = 0.0   # 0 = plain RoPE
+    rope_yarn_original: int = 0
+    rope_yarn_beta_fast: float = 32.0
+    rope_yarn_beta_slow: float = 1.0
+    rope_yarn_attn_factor: float = 1.0
 
     @property
     def hd(self) -> int:
@@ -73,6 +95,16 @@ class ModelConfig:
     def sub_quadratic(self) -> bool:
         """Can this arch serve long_500k decode (O(1)/O(window) state)?"""
         return self.family in ("ssm", "hybrid") or self.attn_kind == "sliding"
+
+    @property
+    def rope_yarn(self) -> Optional[Tuple[float, int, float, float, float]]:
+        """YaRN's (factor, original length, beta_fast, beta_slow, attention
+        factor), or None where it is off."""
+        if not self.rope_yarn_factor:
+            return None
+        return (self.rope_yarn_factor, self.rope_yarn_original,
+                self.rope_yarn_beta_fast, self.rope_yarn_beta_slow,
+                self.rope_yarn_attn_factor)
 
     @property
     def has_decode(self) -> bool:
@@ -90,7 +122,8 @@ class ModelConfig:
         """Per-layer kind list of length n_layers."""
         if self.family == "ssm":
             return ("mamba",) * self.n_layers
-        if self.family == "hybrid":
+        if self.family == "hybrid" or (self.family == "moe"
+                                        and self.pattern):
             assert self.pattern
             reps = -(-self.n_layers // len(self.pattern))
             return (self.pattern * reps)[: self.n_layers]
@@ -103,6 +136,11 @@ class ModelConfig:
             assert self.n_heads % max(self.n_kv, 1) == 0, "GQA requires H % KV == 0"
         if self.family == "moe":
             assert self.n_experts > 0 and 0 < self.top_k <= self.n_experts
+            assert all(k.endswith("+moe") for k in self.pattern)
+        assert 0 <= self.experts_held and 0 <= self.expert_offset
+        assert self.expert_offset + self.experts_held <= max(
+            self.n_experts, 1), "the held experts lie among the router's"
+        assert not self.expert_offset or self.experts_held
         if self.family == "ssm":
             assert self.ssm_state > 0
         if self.family == "hybrid":

@@ -14,7 +14,8 @@ once.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Sequence
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -61,10 +62,30 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps=1e-6) -> torch.Tensor:
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
 
+def yarn_ramp(half: int, theta: float, yarn) -> Tuple[int, int]:
+    """YaRN's (low, high): the frequency indices between which its
+    extrapolated frequencies give way to the interpolated ones,
+    ``floor``/``ceil`` of ``d ln(L / (2 pi beta)) / (2 ln theta)`` at
+    beta_fast and beta_slow (head dim ``d = 2 half``, original length
+    ``L``), clipped to ``[0, d - 1]`` (the published ``rope_type: yarn``)."""
+    _, original, beta_fast, beta_slow, _ = yarn
+    d = 2 * half
+
+    def dim(beta):
+        return (d * math.log(original / (beta * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(dim(beta_fast)), 0),
+            min(math.ceil(dim(beta_slow)), d - 1))
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
-         theta=10000.0) -> torch.Tensor:
+         theta=10000.0, yarn=None) -> torch.Tensor:
     """x: [..., S, H, D]; positions: [..., S].  Halves concatenated, not
-    interleaved."""
+    interleaved.  ``yarn``: ``ModelConfig.rope_yarn``'s (factor, original
+    length, beta_fast, beta_slow, attention factor), or None: each
+    frequency ``f_i`` becomes ``f_i / factor`` below index ``low``, ``f_i``
+    above ``high`` and the linear blend between (``yarn_ramp``), and cos and
+    sin are multiplied by the attention factor."""
     half = x.shape[-1] // 2
     expo = -torch.arange(0, half, dtype=torch.float32,
                          device=x.device) / half
@@ -74,9 +95,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     # every call)
     base = float(torch.tensor(theta, dtype=torch.float32))
     freq = torch.pow(base, expo)
+    if yarn is not None:
+        factor, scale = yarn[0], yarn[4]
+        low, high = yarn_ramp(half, theta, yarn)
+        ramp = ((torch.arange(half, dtype=torch.float32, device=x.device)
+                 - low) / max(high - low, 1e-3)).clamp(0.0, 1.0)
+        freq = freq / factor * ramp + freq * (1.0 - ramp)
     ang = positions[..., None].to(torch.float32) * freq    # [..., S, half]
     ang = ang[..., None, :]                                # [..., S, 1, half]
-    cos, sin = torch.cos(ang).to(x.dtype), torch.sin(ang).to(x.dtype)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if yarn is not None:
+        cos, sin = cos * scale, sin * scale
+    cos, sin = cos.to(x.dtype), sin.to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
@@ -330,7 +360,8 @@ def _split_dim(w) -> Optional[int]:
 
 
 def _sharded_attention(q, k, v, q_pos, k_pos, *, n_heads, n_kv, head_dim,
-                       dim, k_split, rope_theta=0.0, rope_k=True, **kw):
+                       dim, k_split, rope_theta=0.0, rope_k=True,
+                       rope_yarn=None, **kw):
     """``attention`` on DTensors, each rank on its block of the partition
     of ``head_partition``.  ``q`` is the query projection [B, Sq, H * hd]
     before RoPE; ``k`` and ``v`` are projections [B, Sk, KV * hd] or a
@@ -409,9 +440,9 @@ def _sharded_attention(q, k, v, q_pos, k_pos, *, n_heads, n_kv, head_dim,
 
     q_pos, k_pos = local_pos(q_pos), local_pos(k_pos)
     if rope_theta:
-        ql = rope(ql, q_pos, rope_theta)
+        ql = rope(ql, q_pos, rope_theta, rope_yarn)
         if rope_k:
-            kl = rope(kl, k_pos, rope_theta)
+            kl = rope(kl, k_pos, rope_theta, rope_yarn)
     lane_group = None
     if lanes > 1:
         c = head_dim // lanes
@@ -479,7 +510,7 @@ def attn_apply(p: Params, x, positions, *, n_heads, n_kv, head_dim, window=0,
                causal=True, rope_theta=10000.0, q_chunk=512,
                softmax_dtype=torch.float32, cache: Optional[Params] = None,
                pos: Optional[int] = None, cross_kv=None,
-               decode: bool = False):
+               decode: bool = False, rope_yarn=None):
     """Self- or cross-attention.  Returns (y, cache).
 
     cache: optional ring-buffer cache (decode), updated in place: the new
@@ -490,6 +521,7 @@ def attn_apply(p: Params, x, positions, *, n_heads, n_kv, head_dim, window=0,
     decode: the caller's step holds a cache (a cross-attention has none of
     its own): the eager ``_attn_block`` then, as for a self-attention with
     a cache; without one ``attention`` may take the fused kernel.
+    rope_yarn: YaRN's parameters for ``rope`` (None: plain RoPE).
     On DTensors each rank runs its block of the heads
     (``_sharded_attention``).
     """
@@ -520,7 +552,7 @@ def attn_apply(p: Params, x, positions, *, n_heads, n_kv, head_dim, window=0,
         k = split_heads(k, b, s, n_kv, head_dim)
         v = split_heads(v, b, s, n_kv, head_dim)
         if rope_theta:
-            k = rope(k, positions, rope_theta)
+            k = rope(k, positions, rope_theta, rope_yarn)
         slot = pos % cache["k"].shape[1]
         cache["k"][:, slot:slot + s] = k.to(cache["k"].dtype)
         cache["v"][:, slot:slot + s] = v.to(cache["v"].dtype)
@@ -533,16 +565,17 @@ def attn_apply(p: Params, x, positions, *, n_heads, n_kv, head_dim, window=0,
         out = _sharded_attention(q, k, v, positions, k_pos, window=window,
                                  causal=cache is not None or causal,
                                  rope_theta=rope_theta,
-                                 rope_k=cache is None, **kw)
+                                 rope_k=cache is None, rope_yarn=rope_yarn,
+                                 **kw)
         return out @ p["wo"], cache
     q = q.reshape(b, s, n_heads, head_dim)
     if cache is None:
         k = k.reshape(b, s, n_kv, head_dim)
         v = v.reshape(b, s, n_kv, head_dim)
         if rope_theta:
-            k = rope(k, positions, rope_theta)
+            k = rope(k, positions, rope_theta, rope_yarn)
     if rope_theta:
-        q = rope(q, positions, rope_theta)
+        q = rope(q, positions, rope_theta, rope_yarn)
     out = attention(q, k, v, positions, k_pos, window=window,
                     causal=cache is not None or causal,
                     fusable=cache is None, **kw)

@@ -24,12 +24,20 @@ as the reference passes them precomputed.  Prefill and decode (a cache,
 or no gradient wanted) run the layers as they are.
 
 While a profiler runs, attention (self and cross, with its input norm),
-the MLP (with its norm) and the head (the final norm and the chunked
-cross-entropy) are the phases ``grads/attention``, ``grads/mlp`` and
-``grads/head`` (``obs/spans.py``), their backward included.  Each
-attention's record counts ``attn_fused``: 1 where the call went through the
-fused kernel (``layers.attention`` counts it), 0 where it ran the eager
-ops.
+the MLP (with its norm), the expert layer (with its norm) and the head (the
+final norm and the chunked cross-entropy) are the phases
+``grads/attention``, ``grads/mlp``, ``grads/moe`` and ``grads/head``
+(``obs/spans.py``), their backward included.  Each attention's record
+counts ``attn_fused``: 1 where the call went through the fused kernel
+(``layers.attention`` counts it), 0 where it ran the eager ops; and
+``window``, the window it attends within (0: none), its backward record
+too.  An expert layer's counts ``moe_routed`` and ``moe_dropped``
+(``models/moe.py``).
+
+The layers' kinds (``ModelConfig.layer_kinds``): ``la`` kinds (``la``,
+``la+moe``) attend within ``local_window``; the others within ``window``
+where ``attn_kind`` is sliding, else fully, and only a layer of full
+attention takes YaRN's frequencies where the config sets them.
 """
 from __future__ import annotations
 
@@ -101,7 +109,7 @@ def _init_layer(cfg: ModelConfig, kind: str, gen, cross: bool = False,
         return torch.zeros(lead + (d,), device=dev)
 
     p: Dict[str, Any] = {"ln1": zeros()}
-    if kind in ("attn+mlp", "attn+moe", "la"):
+    if kind in ("attn+mlp", "attn+moe", "la", "la+moe"):
         p["attn"] = L.init_attn(gen, d, cfg.n_heads, cfg.n_kv, cfg.hd,
                                 dtype=dt, lead=lead)
     if kind == "mamba":
@@ -111,9 +119,10 @@ def _init_layer(cfg: ModelConfig, kind: str, gen, cross: bool = False,
     if kind == "rg":
         p["rg"] = RG.init_rglru(gen, d, cfg.lru_width, dtype=dt, lead=lead)
     p["ln2"] = zeros()
-    if kind == "attn+moe":
+    if kind.endswith("+moe"):
         p["moe"] = MOE.init_moe(gen, d, cfg.d_ff, cfg.n_experts,
-                                cfg.activation, dtype=dt, lead=lead)
+                                cfg.activation, dtype=dt, lead=lead,
+                                held=cfg.experts_held)
     else:
         p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.activation, dtype=dt,
                               lead=lead)
@@ -144,24 +153,23 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
                               chunk=cfg.scan_chunk, state=cache)
         x = x + y
     else:  # attention kinds
-        window = 0
-        if kind == "la":
-            window = cfg.local_window
-        elif cfg.attn_kind == "sliding":
-            window = cfg.window
-        with spans.phase("grads/attention", attn_fused=0) as ph:
+        window = _window(cfg, kind)
+        with spans.phase("grads/attention", attn_fused=0,
+                         window=window) as ph:
             y, _ = L.attn_apply(
                 _cast(sub(p, "attn"), cd), norm(p["ln1"], x), positions,
                 n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.hd,
                 window=window, causal=causal, rope_theta=cfg.rope_theta,
                 q_chunk=cfg.q_chunk,
                 softmax_dtype=getattr(torch, cfg.softmax_dtype),
-                cache=cache, pos=pos)
-            ph.backward(x, y)
+                cache=cache, pos=pos,
+                rope_yarn=None if window else cfg.rope_yarn)
+            ph.backward(x, y, window=window)
         x = x + y
         xattn = sub(p, "xattn")
         if xattn:
-            with spans.phase("grads/attention", attn_fused=0) as ph:
+            with spans.phase("grads/attention", attn_fused=0,
+                             window=0) as ph:
                 y, _ = L.attn_apply(_cast(xattn, cd), norm(p["lnx"], x),
                                     positions, n_heads=cfg.n_heads,
                                     n_kv=cfg.n_kv, head_dim=cfg.hd,
@@ -169,16 +177,19 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
                                     rope_theta=cfg.rope_theta,
                                     q_chunk=cfg.q_chunk, cross_kv=cross_kv,
                                     decode=cache is not None)
-                ph.backward(x, y)
+                ph.backward(x, y, window=0)
             x = x + y
 
     moe = sub(p, "moe")
     if moe:
-        y, aux = MOE.moe_apply(_cast(moe, cd), norm(p["ln2"], x),
-                               top_k=cfg.top_k,
-                               capacity_factor=cfg.capacity_factor,
-                               activation=cfg.activation,
-                               group_size=cfg.moe_group)
+        with spans.phase("grads/moe") as ph:
+            y, aux = MOE.moe_apply(_cast(moe, cd), norm(p["ln2"], x),
+                                   top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor,
+                                   activation=cfg.activation,
+                                   group_size=cfg.moe_group,
+                                   offset=cfg.expert_offset)
+            ph.backward(x, y)
         x = x + y
     else:
         mlp = sub(p, "mlp")
@@ -189,6 +200,13 @@ def _apply_layer(cfg: ModelConfig, kind: str, p: Params, x, positions, *,
                 ph.backward(x, y)
             x = x + y
     return x, aux
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    """The window a layer of ``kind`` attends within (0: none)."""
+    if kind.startswith("la"):
+        return cfg.local_window
+    return cfg.window if cfg.attn_kind == "sliding" else 0
 
 
 def _layer_fn(cfg: ModelConfig, kind: str, *, causal=True, cache=None,
@@ -225,11 +243,8 @@ def _init_layer_cache(cfg: ModelConfig, kind: str, b: int, cache_len: int,
     if kind == "rg":
         return RG.init_rglru_state(b, cfg.lru_width, dtype=cfg.cdtype,
                                    lead=lead, device=device)
-    clen = cache_len
-    if kind == "la":
-        clen = min(cache_len, cfg.local_window)
-    elif cfg.attn_kind == "sliding":
-        clen = min(cache_len, cfg.window)
+    window = _window(cfg, kind)
+    clen = min(cache_len, window) if window else cache_len
     return L.init_attn_cache(b, clen, cfg.n_kv, cfg.hd, dtype=cfg.cdtype,
                              lead=lead, device=device)
 

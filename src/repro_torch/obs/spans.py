@@ -193,13 +193,13 @@ def _exit(rec: PhaseRecord) -> None:
 
 class _Block:
     """A block's backward record, opened and closed by gradient hooks."""
-    __slots__ = ("name", "rec")
+    __slots__ = ("name", "counts", "rec")
 
-    def __init__(self, name: str):
-        self.name, self.rec = name, None
+    def __init__(self, name: str, counts: Dict):
+        self.name, self.counts, self.rec = name, counts, None
 
     def open(self, grad):
-        self.rec = _enter(self.name, BACKWARD, None, {})
+        self.rec = _enter(self.name, BACKWARD, None, dict(self.counts))
 
     def close(self, grad):
         if self.rec is not None:
@@ -233,13 +233,13 @@ class phase:
             _exit(self.rec)
         return False
 
-    def backward(self, x: torch.Tensor, y: torch.Tensor) -> None:
+    def backward(self, x: torch.Tensor, y: torch.Tensor, **counts) -> None:
         """Make the backward of the block from ``x`` to ``y`` a record too,
-        while a capture runs and ``x`` takes a gradient: ``y``'s gradient
-        opens it, and ``x``'s, once whole, closes it."""
+        with ``counts``, while a capture runs and ``x`` takes a gradient:
+        ``y``'s gradient opens it, and ``x``'s, once whole, closes it."""
         if self.rec is not None and torch.is_grad_enabled() \
                 and x.requires_grad and y.requires_grad:
-            block = _Block(self.name)
+            block = _Block(self.name, counts)
             y.register_hook(block.open)
             x.register_hook(block.close)
 
@@ -249,6 +249,23 @@ def count(**counts) -> None:
     is open: numbers known only inside the region, where it is run."""
     if _OPEN:
         _OPEN[-1].counts.update(counts)
+
+
+def counting() -> bool:
+    """Whether a phase is open to take ``count``'s counts (a capture
+    runs): a count that costs device work is made only then."""
+    return bool(_OPEN)
+
+
+def plain(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the plain tensor under ``torch.func``'s transforms (its
+    ``vmap``'s rows all there), detached: a count made inside them that
+    may outlive them.  A 0-d device count is read (synchronising) only
+    when the log is."""
+    F = torch._C._functorch
+    while F.is_functorch_wrapped_tensor(t):
+        t = F.get_unwrapped(t)
+    return t.detach()
 
 
 @contextlib.contextmanager

@@ -454,8 +454,12 @@ def test_examples_run_on_the_cpu(capsys):
     assert res["wire_bytes"] == [0.0] * 6          # one worker: no ring hop
     cfg = experiments.lm_config(True)
     assert cfg.name == "lm-100m"
-    shapes = jax.eval_shape(jbuild(JModelConfig(**dataclasses.asdict(
-        cfg))).init, jax.random.PRNGKey(0))
+    # the reference's fields (the port's own options are at their
+    # defaults: test_torch_models.py::test_configs_are_the_references)
+    shapes = jax.eval_shape(jbuild(JModelConfig(**{
+        f.name: getattr(cfg, f.name)
+        for f in dataclasses.fields(JModelConfig)})).init,
+        jax.random.PRNGKey(0))
     n = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
     assert n == 116_411_136           # the reference's lm-100m, 116.4 M
     out = experiments.serve_lm(device="cpu")

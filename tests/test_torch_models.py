@@ -170,12 +170,22 @@ def _port(arch, dtype, params_np):
 
 @pytest.mark.parametrize("reduced", [True, False])
 def test_configs_are_the_references(reduced):
+    """Every field the reference's ModelConfig has holds the reference's
+    value; a field only the port has (an option off by default) holds its
+    default in every configuration of the registry."""
     assert tconfigs.ARCHS == jconfigs.ARCHS
     assert tconfigs.SHAPES.keys() == jconfigs.SHAPES.keys()
+    from repro_torch.models.config import ModelConfig
+    port_only = {f.name: f.default for f in dataclasses.fields(ModelConfig)
+                 if f.name not in {g.name for g in dataclasses.fields(
+                     jconfigs.get_config(ARCHS[0], reduced))}}
+    assert port_only        # the port's options beside the reference's
     for arch in ARCHS:
         j = dataclasses.asdict(jconfigs.get_config(arch, reduced))
         t = dataclasses.asdict(tconfigs.get_config(arch, reduced))
-        assert j == t, arch
+        assert {k: t[k] for k in j} == j, arch
+        assert set(t) == set(j) | set(port_only), arch
+        assert {k: t[k] for k in port_only} == port_only, arch
         jc, tc = (m.get_config(arch, reduced) for m in (jconfigs, tconfigs))
         assert (jc.hd, jc.sub_quadratic, jc.layer_kinds()) == (
             tc.hd, tc.sub_quadratic, tc.layer_kinds())
