@@ -280,7 +280,7 @@ OPS_BLOCK = (256, 256)
 OPS_CASES = [(4096, 256), (16384, 4096)]
 MAIN_OPS = OPS_CASES[0]
 # the fused attention's main case: starcoder2-7b's causal GQA, forward
-MAIN_ATTENTION = [4, 4096, 4096, 36, 4, 128, True, "forward"]
+MAIN_ATTENTION = [4, 4096, 4096, 36, 4, 128, True, 0, "forward"]
 # B1 and the encode on the API's tiles also at one tile, as a one-tile leaf
 # (a bias) has it
 ONE_TILE = (256, 256)
@@ -789,8 +789,10 @@ def attention_case(dev, label, shape, seed):
     calls = attention_calls(args, do)
     out = {"label": label, "shape": list(shape), "max_abs_err": err}
     for part, ops_ in (("forward", flops), ("backward", 2.5 * flops)):
-        t = {}
+        t = {"plain_ms": None, "plain_call_ms": None}   # eager left out
         for who, key in (("kernel", "ms"), ("eager", "plain_ms")):
+            if who not in calls[part]:
+                continue
             setup, fn = calls[part][who]
             setup()
             t[key] = device_ms(fn, calls=10 if who == "kernel" else 3)
@@ -809,7 +811,8 @@ def attention_case(dev, label, shape, seed):
 def attention_kernel_phase(dev):
     """The fused attention at the cells' shapes (whisper-tiny's encoder,
     decoder and cross attention at 40 rows, starcoder2-7b's causal GQA at
-    4 x 4096); one case a part for the kernel table."""
+    4 x 4096, Mellum2's at 8 x 8192 with its window and without); one
+    case a part for the kernel table."""
     from repro_torch.bench.kernel_bench import ATTENTION
     cases = []
     for i, (label, shape) in enumerate(ATTENTION.items()):

@@ -434,24 +434,33 @@ def b1_probe(ctx: Context) -> List[Row]:
 
 
 # the fused attention at the cells' shapes: name -> (b, sq, sk, heads, kv
-# heads, head dim, causal); the CPU's toy shapes keep the ragged edges
+# heads, head dim, causal, window); the CPU's toy shapes keep the ragged
+# edges and the window
 ATTENTION = {
-    "whisper_encoder": (40, 1500, 1500, 6, 6, 64, False),
-    "whisper_decoder": (40, 448, 448, 6, 6, 64, True),
-    "whisper_cross": (40, 448, 1500, 6, 6, 64, False),
-    "starcoder2_causal_gqa": (4, 4096, 4096, 36, 4, 128, True)}
+    "whisper_encoder": (40, 1500, 1500, 6, 6, 64, False, 0),
+    "whisper_decoder": (40, 448, 448, 6, 6, 64, True, 0),
+    "whisper_cross": (40, 448, 1500, 6, 6, 64, False, 0),
+    "starcoder2_causal_gqa": (4, 4096, 4096, 36, 4, 128, True, 0),
+    "mellum2_window": (8, 8192, 8192, 32, 4, 128, True, 1024),
+    "mellum2_full": (8, 8192, 8192, 32, 4, 128, True, 0)}
 ATTENTION_TOY = {
-    "whisper_encoder": (2, 150, 150, 2, 2, 64, False),
-    "whisper_decoder": (2, 45, 45, 2, 2, 64, True),
-    "whisper_cross": (2, 45, 150, 2, 2, 64, False),
-    "starcoder2_causal_gqa": (1, 130, 130, 4, 2, 128, True)}
+    "whisper_encoder": (2, 150, 150, 2, 2, 64, False, 0),
+    "whisper_decoder": (2, 45, 45, 2, 2, 64, True, 0),
+    "whisper_cross": (2, 45, 150, 2, 2, 64, False, 0),
+    "starcoder2_causal_gqa": (1, 130, 130, 4, 2, 128, True, 0),
+    "mellum2_window": (1, 520, 520, 4, 1, 128, True, 256),
+    "mellum2_full": (1, 520, 520, 4, 1, 128, True, 0)}
 PEAK_BF16 = 989e12         # the H100 SXM's dense bf16 tensor cores
+# the eager route runs where its f32 scores, held for the backward, fit
+# beside the rest (starcoder2's 9.7 GB; not Mellum2's 68.7 GB)
+EAGER_SCORE_BYTES = 32e9
 
 
 def _attention_operands(dev, shape, seed: int):
     """(the kernel's arguments, dO, forward FLOPs over the unmasked
     pairs)."""
-    b, sq, sk, h, kv, d, causal = shape
+    from repro_torch.kernels import attention as FA
+    b, sq, sk, h, kv, d, causal, window = shape
     g = _gen(dev, seed)
     q, do = (torch.randn(b, sq, h, d, generator=g, device=dev)
              .to(torch.bfloat16) for _ in range(2))
@@ -459,8 +468,8 @@ def _attention_operands(dev, shape, seed: int):
             .to(torch.bfloat16) for _ in range(2))
     qp = torch.arange(sq, dtype=torch.int32, device=dev)[None].expand(b, sq)
     kp = torch.arange(sk, dtype=torch.int32, device=dev)[None].expand(b, sk)
-    pairs = sq * (sq + 1) // 2 if causal else sq * sk
-    return (q, k, v, qp, kp, d ** -0.5, 0, causal), do, \
+    pairs = int(FA.mask(qp[:1], kp[:1], window, causal).sum())
+    return (q, k, v, qp, kp, d ** -0.5, window, causal), do, \
         4.0 * b * h * d * pairs
 
 
@@ -492,29 +501,45 @@ def _graph(fn, leaves):
 def attention_calls(args, do):
     """{part: {kernel, eager, library: (set-up, call)}}: the kernel's
     forward and backward, the eager route they replace (``layers.attention``
-    in query chunks of 512, as the parent step ran) and torch's SDPA as the
-    yardstick (the port never calls it).  A backward's set-up builds the
-    graph it pulls through (dropped when the next set-up runs)."""
+    in query chunks of 512, as the parent step ran; left out where its
+    scores pass ``EAGER_SCORE_BYTES``) and torch's SDPA as the yardstick
+    (the port never calls it; under a window, the memory-efficient
+    backend with the window as a boolean mask and K/V repeated to every
+    query head before the calls).  A backward's set-up builds the graph
+    it pulls through (dropped when the next set-up runs)."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import attention as FA
     from repro_torch.models import layers as L
     q, k, v, qp, kp, scale, window, causal = args
-    rep = q.shape[2] // k.shape[2]
+    b, sq, h, _ = q.shape
+    rep = h // k.shape[2]
+    if window:
+        kx, vx = (t.repeat_interleave(rep, 2) for t in (k, v))
+        allowed = FA.mask(qp[:1], kp[:1], window, causal)
+    else:
+        kx, vx = k, v
 
     def eager(q, k, v):
-        return L.attention(q, k, v, qp, kp, causal=causal, q_chunk=512)
+        return L.attention(q, k, v, qp, kp, window=window, causal=causal,
+                           q_chunk=512)
 
     def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, scale=scale, enable_gqa=rep > 1).transpose(1, 2)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+        if not window:
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=scale,
+                enable_gqa=rep > 1).transpose(1, 2)
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=allowed, scale=scale).transpose(1, 2)
 
     held = {}
 
-    def graph(fn):
+    def graph(fn, leaves):
         def setup():
             held.clear()
-            held["out"], held["leaves"] = _graph(fn, (q, k, v))
+            held["out"], held["leaves"] = _graph(fn, leaves)
         return setup
 
     def pull():
@@ -529,41 +554,59 @@ def attention_calls(args, do):
         return FA._backward(do, *args[:5], held["o"], held["lse"], *args[5:])
 
     none = held.clear
-    return {
+    calls = {
         "forward": {"kernel": (none, lambda: FA._forward(*args)),
                     "eager": (none, lambda: eager(q, k, v)),
-                    "library": (none, lambda: sdpa(q, k, v))},
+                    "library": (none, lambda: sdpa(q, kx, vx))},
         "backward": {"kernel": (kernel_setup, kernel_backward),
-                     "eager": (graph(eager), pull),
-                     "library": (graph(sdpa), pull)}}
+                     "eager": (graph(eager, (q, k, v)), pull),
+                     "library": (graph(sdpa, (q, kx, vx)), pull)}}
+    if 4.0 * b * h * sq * k.shape[1] > EAGER_SCORE_BYTES:
+        for part in calls.values():
+            del part["eager"]
+    return calls
 
 
 def _attention_rows(label, shape, ctx: Context, seed: int) -> List[Row]:
     """The kernel's forward and backward against their FLOP bound, the
-    eager route and SDPA (``attention_calls``)."""
+    eager route and SDPA (``attention_calls``), and the tiles each launch
+    visits and runs without the mask (``attention.launch_tiles``)."""
+    from repro_torch.kernels import attention as FA
     dev = ctx.device
     args, do, flops = _attention_operands(dev, shape, seed)
     calls = attention_calls(args, do)
-    causal = args[-1]
+    window, causal = args[-2:]
+    tiles = FA.launch_tiles(*args[3:5], shape[0], *shape[3:6], window,
+                            causal)
     err = attention_plain_error(args, do) if ctx.cuda else None
     if err is not None and err > 1e-2:
         raise AssertionError(f"attention {label}: the kernel differs from "
                              f"its plain version by {err} of the largest "
                              f"entry")
     rows = []
-    for part, ops_ in (("forward", flops), ("backward", 2.5 * flops)):
+    for part, ops_, kernels in (("forward", flops, ("fwd",)),
+                                ("backward", 2.5 * flops, ("dq", "dkdv"))):
         bound_us = ops_ / PEAK_BF16 * 1e6
         name = (f"attention {part} {label} [{shape[0]}, {shape[1]}x"
                 f"{shape[2]}, {shape[3]}/{shape[4]} heads, {shape[5]}]"
-                f"{' causal' if causal else ''}")
+                f"{' causal' if causal else ''}"
+                f"{f' window {window}' if window else ''}")
+        plan = " ".join(f"tiles_{kn}={tiles[kn][0]} unmasked_{kn}="
+                        f"{tiles[kn][1]}" for kn in kernels)
         if not ctx.cuda:
+            if "eager" not in calls[part]:
+                rows.append((f"kernel/attention_{part}_{label}",
+                             float("nan"), f"{name}: device=cpu: no kernel "
+                             f"runs on the CPU and the eager route's scores "
+                             f"are too large; {plan}"))
+                continue
             setup, fn = calls[part]["eager"]
             setup()
             plain = host_us(fn, dev, reps=1 if ctx.fast else 3)
             rows.append((f"kernel/attention_{part}_{label}", plain,
                          f"{name}: device=cpu: the eager route only, no "
                          f"kernel runs on the CPU; plain_host_us={plain:.1f}"
-                         f" h100_bound_us={bound_us:.3f}"))
+                         f" h100_bound_us={bound_us:.3f} {plan}"))
             continue
         n = 3 if ctx.fast else 10
         times = {}
@@ -572,16 +615,19 @@ def _attention_rows(label, shape, ctx: Context, seed: int) -> List[Row]:
             times[who] = device_trace(fn, n)
         us, per_call, names = times["kernel"]
         share = None if not us else 100.0 * bound_us / us
+        eager = (f"eager_us={fmt(times['eager'][0])} (layers.attention in "
+                 f"chunks of 512)" if "eager" in times else
+                 "eager_us=not_run (its f32 scores would not fit)")
         rows.append((
             f"kernel/attention_{part}_{label}",
             float("nan") if us is None else us,
             f"{name}: device_us={fmt(us)} (torch.profiler CUDA trace, "
             f"{per_call:g} kernels a call {names}) bound_us={bound_us:.3f} "
             f"({ops_:.4g} FLOPs at {PEAK_BF16 / 1e12:.0f} TFLOP/s bf16) "
-            f"roofline_share={fmt(share, 1)}% eager_us="
-            f"{fmt(times['eager'][0])} (layers.attention in chunks of 512) "
+            f"roofline_share={fmt(share, 1)}% {eager} "
             f"library_us={fmt(times['library'][0])} (torch SDPA, yardstick "
-            f"only) max_rel_err={err:.3g} (one batch row and KV group); "
+            f"only) "
+            f"max_rel_err={err:.3g} (one batch row and KV group); {plan}; "
             f"inputs warm"))
     calls.clear()
     return rows

@@ -30,13 +30,29 @@ Design (FlashAttention-2, Triton, built at the first launch):
   tile: causal (q >= k), the window (q - k < window) and, without causal,
   the empty-slot sentinel.  Ragged edges (whisper's 1500 and 448) are
   masked in the kernel.
-* Tile skipping: each program first scans the other side's tiles for the
-  extremes of their positions and runs its main loop only from the first
-  to the last tile in which some pair is unmasked (causal: max q >= min
-  k; the window: min q - max k < window; the sentinel: min k below it).
-  This is exact for any positions: a fully masked tile inside the range
-  adds exactly 0 (its scores sit at -1e30, so its p is 0 and the running
-  max and sum keep their values).
+* Tile schedule: each program first finds, from the other side's
+  positions, the tiles its main loop visits, [lo, hi): the first to the
+  last tile in which some pair is unmasked (causal: max q >= min k; the
+  window: min q - max k < window; the sentinel: min k below it).  This is
+  exact for any positions: a fully masked tile inside the range adds
+  exactly 0 (its scores sit at -1e30, so its p is 0 and the running max
+  and sum keep their values).  The scan (``_plan``) loads SCAN positions
+  a step as one [tiles, BLOCK] block and takes every tile's extremes and
+  rules as vectors, folded once after the loop: 8 steps at 8192
+  positions where a tile a step took 128-256 latency-bound ones, in
+  every program of every layer.  No pre-pass launch and no table: the
+  host-paced cells would pay for another launch.
+* Unmasked interior: the same scan finds [a, b), the tiles whose every
+  pair is unmasked against the program's own extremes (causal: min q >=
+  max k; the window: max q - min k < window; no sentinel) with both
+  tiles whole (no ragged edge on either side).  It is kept only when
+  every tile between a and b is one, else empty, so it is exact for any
+  positions.  The main loop runs [lo, a) and [b, hi) masked and [a, b)
+  without the position loads, the mask and its ``where``: the same tiles
+  in the same order, the values equal up to the compiler contracting a
+  multiply and an add once the ``where`` is gone.  ``tile_plan`` gives
+  both ranges densely by the same rule (the tests and ``bench kernel``
+  count the tiles with it).
 * The caller guarantees every query row keeps at least one key (no
   cache: the diagonal, or every frame); a row with none is undefined
   here (NaN, or an average over masked keys), where ``_attn_block``
@@ -83,6 +99,10 @@ CONFIGS = {
     128: {"fwd": (128, 32, 4, 4), "dkdv": (32, 64, 4, 3),
           "dq": (128, 64, 8, 3)},
 }
+
+# positions a step of each program's scan for its tile schedule (``_plan``):
+# 8 steps at 8192 positions
+SCAN = 1024
 
 _KERNELS = {}
 
@@ -148,27 +168,106 @@ def _kernels():
         return ok
 
     @triton.jit
-    def _range(pos_ptr, n, stride, other_lo, other_hi, window,
-               KEYS: tl.constexpr, CAUSAL: tl.constexpr,
-               WINDOWED: tl.constexpr, BLOCK: tl.constexpr):
-        """[lo, hi): the first and past the last tile of positions
-        ``pos_ptr[0:n]`` (tiles of BLOCK) with an unmasked pair against the
-        other side's extremes; ``KEYS``: the tiles are key tiles."""
+    def _full(qlo, qhi, klo, khi, window, CAUSAL: tl.constexpr,
+              WINDOWED: tl.constexpr):
+        """Every pair of the two tiles is unmasked."""
+        if CAUSAL:
+            ok = qlo >= khi
+        else:
+            ok = khi < 1073741823
+        if WINDOWED:
+            ok = ok & (qhi - klo < window)
+        return ok
+
+    @triton.jit
+    def _plan(pos_ptr, n, stride, own_lo, own_hi, own_full, window,
+              KEYS: tl.constexpr, CAUSAL: tl.constexpr,
+              WINDOWED: tl.constexpr, BLOCK: tl.constexpr,
+              TILES: tl.constexpr):
+        """The program's tile schedule over positions ``pos_ptr[0:n]``
+        (tiles of BLOCK; ``KEYS``: key tiles) against its own extremes:
+        [lo, hi), the first and past the last tile with an unmasked pair,
+        and [a, b), the tiles whose every pair is unmasked, kept only when
+        each tile between a and b is one (``own_full``: the program's own
+        tile has no ragged edge), else empty at hi.  TILES tiles a step:
+        one [TILES, BLOCK] load, the tiles' extremes and rules as
+        vectors, folded once after the loop."""
         n_tiles = tl.cdiv(n, BLOCK)
-        lo = n_tiles + 0
-        hi = n_tiles * 0
+        t0 = tl.arange(0, TILES)
         idx = tl.arange(0, BLOCK)
-        for t in range(0, n_tiles):
-            _, tlo, thi = _pos(pos_ptr, t * BLOCK + idx, n, stride)
+        lo = tl.zeros([TILES], tl.int32) + n_tiles
+        hi = tl.zeros([TILES], tl.int32)
+        a = tl.zeros([TILES], tl.int32) + n_tiles
+        b = tl.zeros([TILES], tl.int32)
+        count = tl.zeros([TILES], tl.int32)
+        for c in range(0, tl.cdiv(n_tiles, TILES)):
+            t = c * TILES + t0
+            e = t[:, None] * BLOCK + idx[None, :]
+            ok = e < n
+            p = tl.load(pos_ptr + e * stride, mask=ok, other=0).to(tl.int32)
+            tlo = tl.min(tl.where(ok, p, 2147483647), 1)
+            thi = tl.max(tl.where(ok, p, -2147483647), 1)
             if KEYS:
-                ok = _live(other_lo, other_hi, tlo, thi, window, CAUSAL,
-                           WINDOWED)
+                live = _live(own_lo, own_hi, tlo, thi, window, CAUSAL,
+                             WINDOWED)
+                full = _full(own_lo, own_hi, tlo, thi, window, CAUSAL,
+                             WINDOWED)
             else:
-                ok = _live(tlo, thi, other_lo, other_hi, window, CAUSAL,
-                           WINDOWED)
-            lo = tl.minimum(lo, tl.where(ok, t, n_tiles))
-            hi = tl.maximum(hi, tl.where(ok, t + 1, 0))
-        return lo, hi
+                live = _live(tlo, thi, own_lo, own_hi, window, CAUSAL,
+                             WINDOWED)
+                full = _full(tlo, thi, own_lo, own_hi, window, CAUSAL,
+                             WINDOWED)
+            live = live & (t < n_tiles)
+            full = full & (t * BLOCK + BLOCK <= n) & own_full
+            lo = tl.minimum(lo, tl.where(live, t, n_tiles))
+            hi = tl.maximum(hi, tl.where(live, t + 1, 0))
+            a = tl.minimum(a, tl.where(full, t, n_tiles))
+            b = tl.maximum(b, tl.where(full, t + 1, 0))
+            count += full.to(tl.int32)
+        lo = tl.min(lo, 0)
+        hi = tl.max(hi, 0)
+        a = tl.min(a, 0)
+        b = tl.max(b, 0)
+        whole = tl.sum(count, 0) == b - a
+        return lo, hi, tl.where(whole, a, hi), tl.where(whole, b, hi)
+
+    @triton.jit
+    def _fwd_tiles(t0, t1, m_i, l_i, acc, q, qp, k_ptr, v_ptr, kp_ptr,
+                   k_ss, v_ss, kp_ss, SK, scale2, window,
+                   CAUSAL: tl.constexpr, WINDOWED: tl.constexpr,
+                   MASKED: tl.constexpr, D: tl.constexpr,
+                   BN: tl.constexpr):
+        """The forward's main loop over key tiles [t0, t1); without
+        ``MASKED`` every pair is unmasked and every tile whole."""
+        cols = tl.arange(0, BN)
+        dims = tl.arange(0, D)
+        for t in range(t0, t1):
+            c = t * BN + cols
+            if MASKED:
+                c_ok = c < SK
+                kp = tl.load(kp_ptr + c * kp_ss, mask=c_ok,
+                             other=0).to(tl.int32)
+                k = tl.load(k_ptr + c[:, None] * k_ss + dims[None, :],
+                            mask=c_ok[:, None], other=0.0)
+            else:
+                k = tl.load(k_ptr + c[:, None] * k_ss + dims[None, :])
+            s = tl.dot(q, tl.trans(k)) * scale2
+            if MASKED:
+                keep = c_ok[None, :] & _keep(qp[:, None], kp[None, :],
+                                             window, CAUSAL, WINDOWED)
+                s = tl.where(keep, s, -1.0e30)
+            m_new = tl.maximum(m_i, tl.max(s, 1))
+            alpha = tl.exp2(m_i - m_new)
+            p = tl.exp2(s - m_new[:, None])
+            l_i = l_i * alpha + tl.sum(p, 1)
+            if MASKED:
+                v = tl.load(v_ptr + c[:, None] * v_ss + dims[None, :],
+                            mask=c_ok[:, None], other=0.0)
+            else:
+                v = tl.load(v_ptr + c[:, None] * v_ss + dims[None, :])
+            acc = acc * alpha[:, None] + tl.dot(p.to(v.dtype), v)
+            m_i = m_new
+        return m_i, l_i, acc
 
     @triton.jit
     def fwd(Q, K, V, QP, KP, O, LSE,
@@ -176,20 +275,20 @@ def _kernels():
             o_sb, o_ss, o_sh, qp_sb, qp_ss, qp_rows, kp_sb, kp_ss, kp_rows,
             H, REP, SQ, SK, scale2, window,
             CAUSAL: tl.constexpr, WINDOWED: tl.constexpr, D: tl.constexpr,
-            BM: tl.constexpr, BN: tl.constexpr):
+            BM: tl.constexpr, BN: tl.constexpr, TILES: tl.constexpr):
         pid_m = tl.program_id(0)
         bh = tl.program_id(1)
         b = bh // H
         h = bh % H
         kvh = h // REP
         rows = pid_m * BM + tl.arange(0, BM)
-        cols = tl.arange(0, BN)
         dims = tl.arange(0, D)
         row_ok = rows < SQ
         qp, qlo, qhi = _pos(QP + (b % qp_rows) * qp_sb, rows, SQ, qp_ss)
         kp_ptr = KP + (b % kp_rows) * kp_sb
-        lo, hi = _range(kp_ptr, SK, kp_ss, qlo, qhi, window, True, CAUSAL,
-                        WINDOWED, BN)
+        whole = pid_m * BM + BM <= SQ
+        lo, hi, ua, ub = _plan(kp_ptr, SK, kp_ss, qlo, qhi, whole, window,
+                               True, CAUSAL, WINDOWED, BN, TILES)
         q = tl.load(Q + b * q_sb + h * q_sh + rows[:, None] * q_ss
                     + dims[None, :], mask=row_ok[:, None], other=0.0)
         k_ptr = K + b * k_sb + kvh * k_sh
@@ -197,29 +296,61 @@ def _kernels():
         m_i = tl.full([BM], float("-inf"), tl.float32)
         l_i = tl.zeros([BM], tl.float32)
         acc = tl.zeros([BM, D], tl.float32)
-        for t in range(lo, hi):
-            c = t * BN + cols
-            c_ok = c < SK
-            kp = tl.load(kp_ptr + c * kp_ss, mask=c_ok, other=0).to(tl.int32)
-            k = tl.load(k_ptr + c[:, None] * k_ss + dims[None, :],
-                        mask=c_ok[:, None], other=0.0)
-            s = tl.dot(q, tl.trans(k)) * scale2
-            keep = c_ok[None, :] & _keep(qp[:, None], kp[None, :], window,
-                                         CAUSAL, WINDOWED)
-            s = tl.where(keep, s, -1.0e30)
-            m_new = tl.maximum(m_i, tl.max(s, 1))
-            alpha = tl.exp2(m_i - m_new)
-            p = tl.exp2(s - m_new[:, None])
-            l_i = l_i * alpha + tl.sum(p, 1)
-            v = tl.load(v_ptr + c[:, None] * v_ss + dims[None, :],
-                        mask=c_ok[:, None], other=0.0)
-            acc = acc * alpha[:, None] + tl.dot(p.to(v.dtype), v)
-            m_i = m_new
+        m_i, l_i, acc = _fwd_tiles(lo, ua, m_i, l_i, acc, q, qp, k_ptr, v_ptr,
+                                   kp_ptr, k_ss, v_ss, kp_ss, SK, scale2,
+                                   window, CAUSAL, WINDOWED, True, D, BN)
+        m_i, l_i, acc = _fwd_tiles(ua, ub, m_i, l_i, acc, q, qp, k_ptr, v_ptr,
+                                   kp_ptr, k_ss, v_ss, kp_ss, SK, scale2,
+                                   window, CAUSAL, WINDOWED, False, D, BN)
+        m_i, l_i, acc = _fwd_tiles(ub, hi, m_i, l_i, acc, q, qp, k_ptr, v_ptr,
+                                   kp_ptr, k_ss, v_ss, kp_ss, SK, scale2,
+                                   window, CAUSAL, WINDOWED, True, D, BN)
         out = acc / l_i[:, None]
         tl.store(O + b * o_sb + h * o_sh + rows[:, None] * o_ss
                  + dims[None, :], out.to(O.dtype.element_ty),
                  mask=row_ok[:, None])
         tl.store(LSE + bh * SQ + rows, m_i + tl.log2(l_i), mask=row_ok)
+
+    @triton.jit
+    def _dkdv_tiles(t0, t1, dk, dv, k, v, kp, c_ok, q_ptr, do_ptr, qp_ptr,
+                    LSE, DELTA, stat, q_ss, do_ss, qp_ss, SQ, scale2, window,
+                    CAUSAL: tl.constexpr, WINDOWED: tl.constexpr,
+                    MASKED: tl.constexpr, D: tl.constexpr,
+                    BM: tl.constexpr):
+        """dK and dV's loop over query tiles [t0, t1) of one query head;
+        without ``MASKED`` every pair is unmasked and every tile whole."""
+        rows0 = tl.arange(0, BM)
+        dims = tl.arange(0, D)
+        for t in range(t0, t1):
+            rows = t * BM + rows0
+            if MASKED:
+                r_ok = rows < SQ
+                qp = tl.load(qp_ptr + rows * qp_ss, mask=r_ok,
+                             other=0).to(tl.int32)
+                q = tl.load(q_ptr + rows[:, None] * q_ss + dims[None, :],
+                            mask=r_ok[:, None], other=0.0)
+                do = tl.load(do_ptr + rows[:, None] * do_ss + dims[None, :],
+                             mask=r_ok[:, None], other=0.0)
+                lse = tl.load(LSE + stat + rows, mask=r_ok, other=0.0)
+                delta = tl.load(DELTA + stat + rows, mask=r_ok, other=0.0)
+            else:
+                q = tl.load(q_ptr + rows[:, None] * q_ss + dims[None, :])
+                do = tl.load(do_ptr + rows[:, None] * do_ss + dims[None, :])
+                lse = tl.load(LSE + stat + rows)
+                delta = tl.load(DELTA + stat + rows)
+            s_t = tl.dot(k, tl.trans(q)) * scale2          # [BN, BM]
+            if MASKED:
+                keep = (c_ok[:, None] & r_ok[None, :]
+                        & _keep(qp[None, :], kp[:, None], window, CAUSAL,
+                                WINDOWED))
+                p_t = tl.where(keep, tl.exp2(s_t - lse[None, :]), 0.0)
+            else:
+                p_t = tl.exp2(s_t - lse[None, :])
+            dv += tl.dot(p_t.to(do.dtype), do)
+            dp_t = tl.dot(v, tl.trans(do))
+            ds_t = p_t * (dp_t - delta[None, :])
+            dk += tl.dot(ds_t.to(q.dtype), q)
+        return dk, dv
 
     @triton.jit
     def dkdv(Q, K, V, DO, LSE, DELTA, DK, DV, QP, KP,
@@ -228,20 +359,20 @@ def _kernels():
              qp_sb, qp_ss, qp_rows, kp_sb, kp_ss, kp_rows,
              H, REP, SQ, SK, scale2, scale, window,
              CAUSAL: tl.constexpr, WINDOWED: tl.constexpr, D: tl.constexpr,
-             BM: tl.constexpr, BN: tl.constexpr):
+             BM: tl.constexpr, BN: tl.constexpr, TILES: tl.constexpr):
         pid_n = tl.program_id(0)
         bk = tl.program_id(1)
         kvs = H // REP
         b = bk // kvs
         kvh = bk % kvs
         cols = pid_n * BN + tl.arange(0, BN)
-        rows0 = tl.arange(0, BM)
         dims = tl.arange(0, D)
         c_ok = cols < SK
         kp, klo, khi = _pos(KP + (b % kp_rows) * kp_sb, cols, SK, kp_ss)
         qp_ptr = QP + (b % qp_rows) * qp_sb
-        lo, hi = _range(qp_ptr, SQ, qp_ss, klo, khi, window, False, CAUSAL,
-                        WINDOWED, BM)
+        whole = pid_n * BN + BN <= SK
+        lo, hi, ua, ub = _plan(qp_ptr, SQ, qp_ss, klo, khi, whole, window,
+                               False, CAUSAL, WINDOWED, BM, TILES)
         k = tl.load(K + b * k_sb + kvh * k_sh + cols[:, None] * k_ss
                     + dims[None, :], mask=c_ok[:, None], other=0.0)
         v = tl.load(V + b * v_sb + kvh * v_sh + cols[:, None] * v_ss
@@ -253,26 +384,18 @@ def _kernels():
             q_ptr = Q + b * q_sb + h * q_sh
             do_ptr = DO + b * do_sb + h * do_sh
             stat = (b * H + h) * SQ
-            for t in range(lo, hi):
-                rows = t * BM + rows0
-                r_ok = rows < SQ
-                qp = tl.load(qp_ptr + rows * qp_ss, mask=r_ok,
-                             other=0).to(tl.int32)
-                q = tl.load(q_ptr + rows[:, None] * q_ss + dims[None, :],
-                            mask=r_ok[:, None], other=0.0)
-                do = tl.load(do_ptr + rows[:, None] * do_ss + dims[None, :],
-                             mask=r_ok[:, None], other=0.0)
-                lse = tl.load(LSE + stat + rows, mask=r_ok, other=0.0)
-                delta = tl.load(DELTA + stat + rows, mask=r_ok, other=0.0)
-                s_t = tl.dot(k, tl.trans(q)) * scale2          # [BN, BM]
-                keep = (c_ok[:, None] & r_ok[None, :]
-                        & _keep(qp[None, :], kp[:, None], window, CAUSAL,
-                                WINDOWED))
-                p_t = tl.where(keep, tl.exp2(s_t - lse[None, :]), 0.0)
-                dv += tl.dot(p_t.to(do.dtype), do)
-                dp_t = tl.dot(v, tl.trans(do))
-                ds_t = p_t * (dp_t - delta[None, :])
-                dk += tl.dot(ds_t.to(q.dtype), q)
+            dk, dv = _dkdv_tiles(lo, ua, dk, dv, k, v, kp, c_ok, q_ptr, do_ptr,
+                                 qp_ptr, LSE, DELTA, stat, q_ss, do_ss, qp_ss,
+                                 SQ, scale2, window, CAUSAL, WINDOWED, True,
+                                 D, BM)
+            dk, dv = _dkdv_tiles(ua, ub, dk, dv, k, v, kp, c_ok, q_ptr, do_ptr,
+                                 qp_ptr, LSE, DELTA, stat, q_ss, do_ss, qp_ss,
+                                 SQ, scale2, window, CAUSAL, WINDOWED, False,
+                                 D, BM)
+            dk, dv = _dkdv_tiles(ub, hi, dk, dv, k, v, kp, c_ok, q_ptr, do_ptr,
+                                 qp_ptr, LSE, DELTA, stat, q_ss, do_ss, qp_ss,
+                                 SQ, scale2, window, CAUSAL, WINDOWED, True,
+                                 D, BM)
         tl.store(DK + b * dk_sb + kvh * dk_sh + cols[:, None] * dk_ss
                  + dims[None, :], (dk * scale).to(DK.dtype.element_ty),
                  mask=c_ok[:, None])
@@ -281,26 +404,61 @@ def _kernels():
                  mask=c_ok[:, None])
 
     @triton.jit
+    def _dq_tiles(t0, t1, acc, q, do, qp, lse, delta, row_ok, k_ptr, v_ptr,
+                  kp_ptr, k_ss, v_ss, kp_ss, SK, scale2, window,
+                  CAUSAL: tl.constexpr, WINDOWED: tl.constexpr,
+                  MASKED: tl.constexpr, D: tl.constexpr, BN: tl.constexpr):
+        """dQ's loop over key tiles [t0, t1); without ``MASKED`` every pair
+        is unmasked and every tile whole."""
+        cols = tl.arange(0, BN)
+        dims = tl.arange(0, D)
+        for t in range(t0, t1):
+            c = t * BN + cols
+            if MASKED:
+                c_ok = c < SK
+                kp = tl.load(kp_ptr + c * kp_ss, mask=c_ok,
+                             other=0).to(tl.int32)
+                k = tl.load(k_ptr + c[:, None] * k_ss + dims[None, :],
+                            mask=c_ok[:, None], other=0.0)
+                v = tl.load(v_ptr + c[:, None] * v_ss + dims[None, :],
+                            mask=c_ok[:, None], other=0.0)
+            else:
+                k = tl.load(k_ptr + c[:, None] * k_ss + dims[None, :])
+                v = tl.load(v_ptr + c[:, None] * v_ss + dims[None, :])
+            s = tl.dot(q, tl.trans(k)) * scale2
+            if MASKED:
+                keep = (row_ok[:, None] & c_ok[None, :]
+                        & _keep(qp[:, None], kp[None, :], window, CAUSAL,
+                                WINDOWED))
+                p = tl.where(keep, tl.exp2(s - lse[:, None]), 0.0)
+            else:
+                p = tl.exp2(s - lse[:, None])
+            dp = tl.dot(do, tl.trans(v))
+            ds = p * (dp - delta[:, None])
+            acc += tl.dot(ds.to(k.dtype), k)
+        return acc
+
+    @triton.jit
     def dq(Q, K, V, O, DO, LSE, DELTA, DQ, QP, KP,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            do_sb, do_ss, do_sh, o_sb, o_ss, o_sh, dq_sb, dq_ss, dq_sh,
            qp_sb, qp_ss, qp_rows, kp_sb, kp_ss, kp_rows,
            H, REP, SQ, SK, scale2, scale, window,
            CAUSAL: tl.constexpr, WINDOWED: tl.constexpr, D: tl.constexpr,
-           BM: tl.constexpr, BN: tl.constexpr):
+           BM: tl.constexpr, BN: tl.constexpr, TILES: tl.constexpr):
         pid_m = tl.program_id(0)
         bh = tl.program_id(1)
         b = bh // H
         h = bh % H
         kvh = h // REP
         rows = pid_m * BM + tl.arange(0, BM)
-        cols = tl.arange(0, BN)
         dims = tl.arange(0, D)
         row_ok = rows < SQ
         qp, qlo, qhi = _pos(QP + (b % qp_rows) * qp_sb, rows, SQ, qp_ss)
         kp_ptr = KP + (b % kp_rows) * kp_sb
-        lo, hi = _range(kp_ptr, SK, kp_ss, qlo, qhi, window, True, CAUSAL,
-                        WINDOWED, BN)
+        whole = pid_m * BM + BM <= SQ
+        lo, hi, ua, ub = _plan(kp_ptr, SK, kp_ss, qlo, qhi, whole, window,
+                               True, CAUSAL, WINDOWED, BN, TILES)
         q = tl.load(Q + b * q_sb + h * q_sh + rows[:, None] * q_ss
                     + dims[None, :], mask=row_ok[:, None], other=0.0)
         do = tl.load(DO + b * do_sb + h * do_sh + rows[:, None] * do_ss
@@ -313,22 +471,15 @@ def _kernels():
         k_ptr = K + b * k_sb + kvh * k_sh
         v_ptr = V + b * v_sb + kvh * v_sh
         acc = tl.zeros([BM, D], tl.float32)
-        for t in range(lo, hi):
-            c = t * BN + cols
-            c_ok = c < SK
-            kp = tl.load(kp_ptr + c * kp_ss, mask=c_ok, other=0).to(tl.int32)
-            k = tl.load(k_ptr + c[:, None] * k_ss + dims[None, :],
-                        mask=c_ok[:, None], other=0.0)
-            v = tl.load(v_ptr + c[:, None] * v_ss + dims[None, :],
-                        mask=c_ok[:, None], other=0.0)
-            s = tl.dot(q, tl.trans(k)) * scale2
-            keep = (row_ok[:, None] & c_ok[None, :]
-                    & _keep(qp[:, None], kp[None, :], window, CAUSAL,
-                            WINDOWED))
-            p = tl.where(keep, tl.exp2(s - lse[:, None]), 0.0)
-            dp = tl.dot(do, tl.trans(v))
-            ds = p * (dp - delta[:, None])
-            acc += tl.dot(ds.to(k.dtype), k)
+        acc = _dq_tiles(lo, ua, acc, q, do, qp, lse, delta, row_ok, k_ptr,
+                        v_ptr, kp_ptr, k_ss, v_ss, kp_ss, SK, scale2, window,
+                        CAUSAL, WINDOWED, True, D, BN)
+        acc = _dq_tiles(ua, ub, acc, q, do, qp, lse, delta, row_ok, k_ptr,
+                        v_ptr, kp_ptr, k_ss, v_ss, kp_ss, SK, scale2, window,
+                        CAUSAL, WINDOWED, False, D, BN)
+        acc = _dq_tiles(ub, hi, acc, q, do, qp, lse, delta, row_ok, k_ptr,
+                        v_ptr, kp_ptr, k_ss, v_ss, kp_ss, SK, scale2, window,
+                        CAUSAL, WINDOWED, True, D, BN)
         tl.store(DQ + b * dq_sb + h * dq_sh + rows[:, None] * dq_ss
                  + dims[None, :], (acc * scale).to(DQ.dtype.element_ty),
                  mask=row_ok[:, None])
@@ -377,6 +528,11 @@ def _cuda_operands(q, d, *tensors):
                          f"the grid's second dimension, 65535")
 
 
+def _tiles(block):
+    """Tiles a step of the schedule's scan: SCAN positions."""
+    return max(1, SCAN // block)
+
+
 def _last_dense(t):
     return t if t.stride(-1) == 1 else t.contiguous()
 
@@ -400,7 +556,7 @@ def _forward_cuda(q, k, v, q_pos, k_pos, scale, window, causal):
             *v.stride()[:3], *o.stride()[:3], *_pos_args(q_pos),
             *_pos_args(k_pos), h, h // kvs, sq, sk, scale * LOG2E,
             window, CAUSAL=causal, WINDOWED=window > 0, D=d, BM=bm, BN=bn,
-            num_warps=warps, num_stages=stages)
+            TILES=_tiles(bn), num_warps=warps, num_stages=stages)
     flash_attention.launches += 1
     return o, lse
 
@@ -430,12 +586,12 @@ def _backward_cuda(do, q, k, v, q_pos, k_pos, o, lse, scale, window,
         kern["dq"][(kern["cdiv"](sq, bm), b * h)](
             q, k, v, o, do, lse, delta, dq, q_pos, k_pos, *strides,
             *o.stride()[:3], *dq.stride()[:3], *common, **flags, BM=bm,
-            BN=bn, num_warps=warps, num_stages=stages)
+            BN=bn, TILES=_tiles(bn), num_warps=warps, num_stages=stages)
         bm, bn, warps, stages = cfg["dkdv"]
         kern["dkdv"][(kern["cdiv"](sk, bn), b * kvs)](
             q, k, v, do, lse, delta, dk, dv, q_pos, k_pos, *strides,
             *dk.stride()[:3], *dv.stride()[:3], *common, **flags, BM=bm,
-            BN=bn, num_warps=warps, num_stages=stages)
+            BN=bn, TILES=_tiles(bm), num_warps=warps, num_stages=stages)
     flash_attention.launches += 2
     return dq, dk, dv
 
@@ -449,6 +605,78 @@ def _rows(p, b):
     return p if p.shape[0] == b else p.repeat(b // p.shape[0], 1)
 
 
+def _tile_extremes(p, block):
+    """Each tile's least and largest position and whether it is whole
+    (no ragged edge), of positions [rows, S] in tiles of ``block``."""
+    rows, n = p.shape
+    pad = -n % block
+    p = p.long()
+    lo = torch.cat([p, p.new_full((rows, pad), 2**31 - 1)], 1)
+    hi = torch.cat([p, p.new_full((rows, pad), -2**31 + 1)], 1)
+    whole = torch.arange(1, (n + pad) // block + 1, device=p.device) * block
+    return (lo.reshape(rows, -1, block).amin(-1),
+            hi.reshape(rows, -1, block).amax(-1), whole <= n)
+
+
+def tile_plan(pos, other_pos, block, other_block, window, causal, keys):
+    """The kernels' tile schedule, densely: for each tile of ``other_pos``
+    (a program's own positions, tiles of ``other_block``), the tiles of
+    ``pos`` (tiles of ``block``; ``keys``: key positions) its main loop
+    visits, [lo, hi), and among them those it runs without the mask,
+    [a, b) (a = b = hi when none).  The rule is the kernels' ``_plan``:
+    a tile is live when some pair of the two is unmasked by the extremes'
+    test, and [a, b) spans the tiles whose every pair is unmasked, both
+    tiles whole, only where no other tile lies between.  Positions [S] or
+    [rows, S]; returns [rows, tiles of other_pos, 4] int64 (lo, hi, a,
+    b)."""
+    pos = pos if pos.dim() == 2 else pos[None]
+    other_pos = other_pos if other_pos.dim() == 2 else other_pos[None]
+    rows = max(pos.shape[0], other_pos.shape[0])
+    t_lo, t_hi, t_whole = _tile_extremes(_rows(pos, rows), block)
+    o_lo, o_hi, o_whole = _tile_extremes(_rows(other_pos, rows), other_block)
+    t_side = (t_lo[:, None, :], t_hi[:, None, :])
+    o_side = (o_lo[:, :, None], o_hi[:, :, None])
+    (qlo, qhi), (klo, khi) = ((o_side, t_side) if keys
+                              else (t_side, o_side))
+    if causal:
+        live, full = qhi >= klo, qlo >= khi
+    else:
+        live, full = klo < INVALID_POS, khi < INVALID_POS
+    if window > 0:
+        live = live & (qlo - khi < window)
+        full = full & (qhi - klo < window)
+    shape = (rows, o_lo.shape[1], t_lo.shape[1])
+    live = live.expand(shape)
+    full = full & t_whole[None, None, :] & o_whole[None, :, None]
+    n = shape[2]
+    t = torch.arange(n, device=pos.device)
+    lo = torch.where(live, t, n).amin(-1)
+    hi = torch.where(live, t + 1, 0).amax(-1)
+    a = torch.where(full, t, n).amin(-1)
+    b = torch.where(full, t + 1, 0).amax(-1)
+    kept = full.sum(-1) == b - a
+    return torch.stack([lo, hi, torch.where(kept, a, hi),
+                        torch.where(kept, b, hi)], -1)
+
+
+def launch_tiles(q_pos, k_pos, batch, heads, kv_heads, d, window, causal):
+    """{kernel: (tiles visited, tiles on the unmasked path)} of one
+    forward and one backward launch (``fwd``; ``dq``, ``dkdv``) at these
+    positions, by ``tile_plan`` at ``CONFIGS[d]``'s tiles: a tile is one
+    (query tile, key tile) product of one query head."""
+    q_pos = q_pos if q_pos.dim() == 2 else q_pos[None]
+    k_pos = k_pos if k_pos.dim() == 2 else k_pos[None]
+    out = {}
+    for name, (bm, bn, _, _) in CONFIGS[d].items():
+        if name == "dkdv":      # a program per key tile, over rep heads
+            plan = tile_plan(q_pos, k_pos, bm, bn, window, causal, False)
+        else:
+            plan = tile_plan(k_pos, q_pos, bn, bm, window, causal, True)
+        times = batch // plan.shape[0] * heads
+        lo, hi, a, b = plan.unbind(-1)
+        out[name] = (int((hi - lo).clamp(min=0).sum()) * times,
+                     int((b - a).sum()) * times)
+    return out
 
 
 def _scores(q, k, q_pos, k_pos, scale, window, causal):

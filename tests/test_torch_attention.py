@@ -205,7 +205,23 @@ def _keep(qp, kp, window, causal):
     return m & (qp - kp < window) if window > 0 else m
 
 
-def tiled_forward(q, k, v, qp, kp, scale, window, causal, bm, bn):
+def _plan(plan, pos, other, block, other_block, window, causal, keys):
+    """``plan`` (``FA.tile_plan`` or a stand-in) as Python ints: one
+    (lo, hi, a, b) a tile of ``other``."""
+    return plan(pos, other, block, other_block, window, causal,
+                keys)[0].tolist()
+
+
+def _split(lo, hi, a, b):
+    """The kernels' three loops in order: (tile, masked) over [lo, a),
+    [a, b) unmasked, [b, hi)."""
+    return ([(t, True) for t in range(lo, a)]
+            + [(t, False) for t in range(a, b)]
+            + [(t, True) for t in range(b, hi)])
+
+
+def tiled_forward(q, k, v, qp, kp, scale, window, causal, bm, bn,
+                  plan=FA.tile_plan):
     """Returns (o, lse in base 2, tiles computed)."""
     b, sq, h, d = q.shape
     rep = h // k.shape[2]
@@ -214,21 +230,21 @@ def tiled_forward(q, k, v, qp, kp, scale, window, causal, bm, bn):
     s2 = scale * FA.LOG2E
     done = 0
     for bi in range(b):
+        tiles = _plan(plan, kp[bi], qp[bi], bn, bm, window, causal, True)
         for hi_ in range(h):
             kvh = hi_ // rep
             for m0 in range(0, sq, bm):
                 rows = slice(m0, min(m0 + bm, sq))
                 qpos = qp[bi, rows]
-                lo, hi = _tile_range(kp[bi], bn, _extremes(qpos), True,
-                                     window, causal)
                 m_i = torch.full((qpos.shape[0],), float("-inf"))
                 l_i = torch.zeros(qpos.shape[0])
                 acc = torch.zeros(qpos.shape[0], d)
-                for t in range(lo, hi):
+                for t, masked in _split(*tiles[m0 // bm]):
                     cols = slice(t * bn, min((t + 1) * bn, k.shape[1]))
                     s = (q[bi, rows, hi_] @ k[bi, cols, kvh].T) * s2
-                    s = torch.where(_keep(qpos, kp[bi, cols], window, causal),
-                                    s, -1.0e30)
+                    if masked:
+                        s = torch.where(_keep(qpos, kp[bi, cols], window,
+                                              causal), s, -1.0e30)
                     m_new = torch.maximum(m_i, s.amax(1))
                     alpha = torch.exp2(m_i - m_new)
                     p = torch.exp2(s - m_new[:, None])
@@ -242,7 +258,7 @@ def tiled_forward(q, k, v, qp, kp, scale, window, causal, bm, bn):
 
 
 def tiled_backward(do, q, k, v, qp, kp, o, lse, scale, window, causal, bm,
-                   bn):
+                   bn, plan=FA.tile_plan):
     b, sq, h, d = q.shape
     sk, kvs = k.shape[1], k.shape[2]
     rep = h // kvs
@@ -250,36 +266,37 @@ def tiled_backward(do, q, k, v, qp, kp, o, lse, scale, window, causal, bm,
     delta = (do * o).sum(-1).permute(0, 2, 1)          # [B, H, Sq]
     dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
     for bi in range(b):
+        tiles = _plan(plan, qp[bi], kp[bi], bm, bn, window, causal, False)
         for kvh in range(kvs):                         # dK, dV
             for n0 in range(0, sk, bn):
                 cols = slice(n0, min(n0 + bn, sk))
                 kpos = kp[bi, cols]
-                lo, hi = _tile_range(qp[bi], bm, _extremes(kpos), False,
-                                     window, causal)
                 for hq in range(kvh * rep, (kvh + 1) * rep):
-                    for t in range(lo, hi):
+                    for t, masked in _split(*tiles[n0 // bn]):
                         rows = slice(t * bm, min((t + 1) * bm, sq))
                         s_t = (k[bi, cols, kvh] @ q[bi, rows, hq].T) * s2
-                        keep = _keep(qp[bi, rows], kpos, window, causal).T
-                        p_t = torch.where(keep, torch.exp2(
-                            s_t - lse[bi, hq, rows][None]), 0.0)
+                        p_t = torch.exp2(s_t - lse[bi, hq, rows][None])
+                        if masked:
+                            keep = _keep(qp[bi, rows], kpos, window,
+                                         causal).T
+                            p_t = torch.where(keep, p_t, 0.0)
                         dv[bi, cols, kvh] += p_t @ do[bi, rows, hq]
                         dp_t = v[bi, cols, kvh] @ do[bi, rows, hq].T
                         ds_t = p_t * (dp_t - delta[bi, hq, rows][None])
                         dk[bi, cols, kvh] += ds_t @ q[bi, rows, hq]
+        tiles = _plan(plan, kp[bi], qp[bi], bn, bm, window, causal, True)
         for hq in range(h):                            # dQ
             kvh = hq // rep
             for m0 in range(0, sq, bm):
                 rows = slice(m0, min(m0 + bm, sq))
                 qpos = qp[bi, rows]
-                lo, hi = _tile_range(kp[bi], bn, _extremes(qpos), True,
-                                     window, causal)
-                for t in range(lo, hi):
+                for t, masked in _split(*tiles[m0 // bm]):
                     cols = slice(t * bn, min((t + 1) * bn, sk))
                     s = (q[bi, rows, hq] @ k[bi, cols, kvh].T) * s2
-                    keep = _keep(qpos, kp[bi, cols], window, causal)
-                    p = torch.where(keep, torch.exp2(
-                        s - lse[bi, hq, rows][:, None]), 0.0)
+                    p = torch.exp2(s - lse[bi, hq, rows][:, None])
+                    if masked:
+                        p = torch.where(_keep(qpos, kp[bi, cols], window,
+                                              causal), p, 0.0)
                     dp = do[bi, rows, hq] @ v[bi, cols, kvh].T
                     ds = p * (dp - delta[bi, hq, rows][:, None])
                     dq[bi, rows, hq] += ds @ k[bi, cols, kvh]
@@ -361,22 +378,140 @@ def test_tiled_algorithm_matches_attn_block(name):
         assert done == tiles
 
 
+def _widened(pos, other, block, other_block, window, causal, keys):
+    """``tile_plan`` with [lo, hi) widened to every tile, [a, b) kept."""
+    plan = FA.tile_plan(pos, other, block, other_block, window, causal,
+                        keys).clone()
+    plan[..., 0] = 0
+    plan[..., 1] = -(-pos.shape[-1] // block)
+    return plan
+
+
+def _masked_everywhere(pos, other, block, other_block, window, causal,
+                       keys):
+    """``tile_plan`` with its unmasked interior emptied."""
+    plan = FA.tile_plan(pos, other, block, other_block, window, causal,
+                        keys).clone()
+    plan[..., 2] = plan[..., 1]
+    plan[..., 3] = plan[..., 1]
+    return plan
+
+
 def test_skipping_a_masked_tile_is_exact():
     """A fully masked tile inside the live range adds exactly 0: the same
     bits with the range widened to every tile."""
     q, k, v, _, qp, kp, causal, window = _inputs(TILED["window"])
     scale = q.shape[-1] ** -0.5
     o, lse, _ = tiled_forward(q, k, v, qp, kp, scale, window, causal, 64, 32)
-    saved = _tile_range.__code__
-    try:
-        _tile_range.__code__ = (lambda pos, block, other, keys, window,
-                                causal: (0, -(-pos.shape[0] // block))
-                                ).__code__
-        o2, lse2, _ = tiled_forward(q, k, v, qp, kp, scale, window, causal,
-                                    64, 32)
-    finally:
-        _tile_range.__code__ = saved
+    o2, lse2, _ = tiled_forward(q, k, v, qp, kp, scale, window, causal, 64,
+                                32, plan=_widened)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+# name: (bm, bn); the window's tiles fit inside its 37 positions
+INTERIOR = {"window": (16, 8), "gqa_causal": (64, 32),
+            "encoder_1500": (64, 32), "empty_slots": (64, 32)}
+
+
+@pytest.mark.parametrize("name", sorted(INTERIOR))
+def test_unmasked_interior_is_exact(name):
+    """The tiles on the unmasked path need no mask: the mirror gives the
+    same bits, forward and backward, with every tile masked."""
+    q, k, v, do, qp, kp, causal, window = _inputs(TILED[name])
+    scale = q.shape[-1] ** -0.5
+    bm, bn = INTERIOR[name]
+    outs = []
+    for plan in (FA.tile_plan, _masked_everywhere):
+        o, lse, _ = tiled_forward(q, k, v, qp, kp, scale, window, causal,
+                                  bm, bn, plan=plan)
+        outs.append((o, lse) + tiled_backward(do, q, k, v, qp, kp, o, lse,
+                                              scale, window, causal, bm, bn,
+                                              plan=plan))
+    assert all(torch.equal(a, r) for a, r in zip(*outs))
+    plan = FA.tile_plan(kp, qp, bn, bm, window, causal, True)
+    assert int((plan[..., 3] - plan[..., 2]).sum()) > 0
+
+
+# (block, other_block): the kernels' tiles for head dim 64 and 128, and a
+# pair that divides no length
+PLAN_BLOCKS = [(64, 128), (128, 32), (32, 64), (128, 64), (48, 80)]
+
+
+@pytest.mark.parametrize("blocks", PLAN_BLOCKS)
+@pytest.mark.parametrize("keys", [True, False])
+@pytest.mark.parametrize("name", sorted(TILED))
+def test_tile_plan_range_is_the_scan(name, keys, blocks):
+    """``tile_plan``'s [lo, hi) is ``_tile_range``'s, the scan one tile at
+    a time, for every tile of the program's side and every position kind;
+    [a, b) lies inside it, or is empty at hi."""
+    _, _, _, _, qp, kp, causal, window = _inputs(TILED[name])
+    block, other_block = blocks
+    pos, other = (kp, qp) if keys else (qp, kp)
+    plan = FA.tile_plan(pos, other, block, other_block, window, causal,
+                        keys)
+    for r in range(pos.shape[0]):
+        for j, (lo, hi, a, b) in enumerate(plan[r].tolist()):
+            own = other[r, j * other_block:(j + 1) * other_block]
+            assert (lo, hi) == _tile_range(pos[r], block, _extremes(own),
+                                           keys, window, causal)
+            assert (a, b) == (hi, hi) or lo <= a < b <= hi
+
+
+@pytest.mark.parametrize("blocks", PLAN_BLOCKS)
+@pytest.mark.parametrize("keys", [True, False])
+@pytest.mark.parametrize("name", sorted(TILED))
+def test_tile_plan_interior_is_unmasked(name, keys, blocks):
+    """Every tile in [a, b) is whole, its program's tile is whole, and
+    every pair of the two is unmasked under ``mask``."""
+    _, _, _, _, qp, kp, causal, window = _inputs(TILED[name])
+    block, other_block = blocks
+    pos, other = (kp, qp) if keys else (qp, kp)
+    plan = FA.tile_plan(pos, other, block, other_block, window, causal,
+                        keys)
+    for r in range(pos.shape[0]):
+        for j, (_, _, a, b) in enumerate(plan[r].tolist()):
+            own = other[r, j * other_block:(j + 1) * other_block]
+            for t in range(a, b):
+                tile = pos[r, t * block:(t + 1) * block]
+                assert tile.shape[0] == block
+                assert own.shape[0] == other_block
+                qs, ks = (own, tile) if keys else (tile, own)
+                assert FA.mask(qs[None], ks[None], window, causal).all()
+
+
+def test_tile_plan_interior_must_be_contiguous():
+    """Two fully unmasked key tiles on either side of a tile with one
+    masked pair: no unmasked path, [a, b) empty at hi."""
+    qp = torch.arange(64, 128)[None]
+    kp = torch.arange(48)[None].clone()
+    kp[0, 31] = 100             # above some queries: live, not unmasked
+    plan = FA.tile_plan(kp, qp, 16, 64, 0, True, True)
+    assert plan.tolist() == [[[0, 3, 3, 3]]]
+    kp[0, 31] = 31
+    assert FA.tile_plan(kp, qp, 16, 64, 0, True, True).tolist() == [
+        [[0, 3, 0, 3]]]
+
+
+def test_tile_plan_ragged_edge_stays_masked():
+    """A ragged tile, on either side, is never on the unmasked path."""
+    pos = torch.arange(100)[None]
+    plan = FA.tile_plan(pos, pos, 32, 32, 0, False, True)[0].tolist()
+    assert plan[:3] == [[0, 4, 0, 3]] * 3
+    assert plan[3] == [0, 4, 4, 4]          # the program's own edge
+
+
+def test_launch_tiles_counts_each_head():
+    """Visited and unmasked tiles of a launch: a plain non-causal
+    attention visits every tile product of every head, and runs those of
+    whole tiles unmasked; a causal one visits under 0.7 of them."""
+    b, s, h, kv, d = 2, 512, 4, 2, 64
+    pos = torch.arange(s)
+    full = FA.launch_tiles(pos, pos, b, h, kv, d, 0, False)
+    causal = FA.launch_tiles(pos, pos, b, h, kv, d, 0, True)
+    for name, (bm, bn, _, _) in FA.CONFIGS[d].items():
+        tiles = b * h * (s // bm) * (s // bn)
+        assert full[name] == (tiles, tiles)
+        assert causal[name][1] < causal[name][0] < 0.7 * tiles
 
 
 # ---------------------------------------------------------------------------

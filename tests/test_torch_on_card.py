@@ -863,13 +863,17 @@ def test_dry_run_moves_no_device_memory(cuda_device):
 
 # b, sq, sk, h, kv, d, causal, window: the cells' own shapes (whisper-tiny's
 # encoder, decoder and cross attention at 2 rows, one row of starcoder2-7b's
-# causal GQA at 4096) and a window
+# causal GQA at 4096), a window, Mellum2's window at 8192, where the
+# unmasked path carries most tiles, and a window whose ragged edge tile
+# must stay on the masked path
 ATTN_CASES = {
     "encoder": (2, 1500, 1500, 6, 6, 64, False, 0),
     "decoder": (2, 448, 448, 6, 6, 64, True, 0),
     "cross": (2, 448, 1500, 6, 6, 64, False, 0),
     "gqa_4096": (1, 4096, 4096, 36, 4, 128, True, 0),
     "window": (2, 1000, 1000, 8, 2, 128, True, 256),
+    "window_8192": (1, 8192, 8192, 8, 1, 128, True, 1024),
+    "window_ragged_96": (2, 1000, 1000, 8, 2, 128, True, 96),
 }
 
 
@@ -936,6 +940,40 @@ def test_flash_attention_kernel_matches_attn_block(cuda_device, name):
         assert _rel(mine, r16) <= 3e-2, (name, _rel(mine, r16))
         assert _rel(mine, r32) <= _rel(r16, r32) + 1e-3, (
             name, _rel(mine, r32), _rel(r16, r32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["shuffled", "slots", "window_both_ways"])
+def test_flash_attention_kernel_on_any_positions(cuda_device, kind):
+    """The tile schedule is exact for any positions: shuffled causal
+    positions (no tile wholly unmasked in order), a cache whose tail slots
+    hold the sentinel, and a non-causal window; out, dq, dk and dv within
+    1e-2 of ``_attn_block`` in f32, as above."""
+    from repro_torch.kernels import attention as FA
+    from repro_torch.models import layers as L
+    q, k, v, do, qp, kp, _, _ = _attn_inputs(
+        (2, 1000, 1000, 8, 2, 128, True, 0), cuda_device, seed=4)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    kp = kp[None].repeat(2, 1).int()
+    causal, window = kind == "shuffled", 300 * (kind == "window_both_ways")
+    if kind == "shuffled":
+        qp = torch.stack([torch.randperm(1000, generator=gen,
+                                         device=cuda_device)
+                          for _ in range(2)]).int()
+        kp = qp
+    elif kind == "slots":
+        kp[:, 700:] = FA.INVALID_POS
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = FA.flash_attention(*leaves, qp, kp, scale=q.shape[-1] ** -0.5,
+                             window=window, causal=causal)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    r_out = L._attn_block(*ref, qp, kp, q.shape[2] // k.shape[2],
+                          q.shape[-1] ** -0.5, window, causal, torch.float32)
+    r_grads = torch.autograd.grad(r_out, ref, do.float())
+    for mine, r in zip((out, *grads), (r_out, *r_grads)):
+        assert torch.isfinite(mine).all()
+        assert _rel(mine, r) <= 1e-2, (kind, _rel(mine, r))
 
 
 def _attn_loss(q, k, v, pos):
